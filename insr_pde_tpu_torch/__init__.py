@@ -1,0 +1,14 @@
+"""insr_pde_tpu_torch — the PyTorch/CUDA port of `insr_pde_tpu` for one NVIDIA H100.
+
+A second package beside the JAX one, with the same module layout so that each
+module's counterpart is easy to find (`config`, `ops/…`, `models/…`,
+`utils/…`). It imports `torch`, numpy, scipy and matplotlib, and nothing of
+JAX or of `insr_pde_tpu`. Every TPU kernel of a ported path becomes a kernel
+written by hand for Hopper under `csrc/`, built by `nvcc` at first use.
+
+Ported so far: the 2D fluid split timestep (`models/fluid.py`) end to end,
+with the fused SIREN forward as a CUDA kernel (`ops/siren_forward.py`,
+`csrc/siren_forward.cu`). Entry point: `python -m insr_pde_tpu_torch fluid …`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,162 @@
+"""Core model protocol: timestep loop, per-phase solves, checkpoint, metrics
+(counterpart of `insr_pde_tpu/models/base.py`).
+
+Fields are parameter lists in `self.fields`; "copy weights to the prev net"
+is a list assignment. Each training phase is a cached `Solver`. Every model
+owns one `torch.Generator`, seeded from `cfg.seed`, on its device: network
+init and every collocation draw come from it.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops.precision import resolve_device, set_full_precision
+from ..utils.ckpt import load_pytree, save_pytree
+from ..utils import viz
+from ..utils.logging import MetricsWriter
+from .networks import get_network
+from .solver import LossFn, SampleFn, Solver
+
+
+class BaseModel:
+    def __init__(self, cfg: Config):
+        set_full_precision()
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.dt = cfg.dt
+        self.max_n_iters = cfg.max_n_iters
+        self.sample_resolution = cfg.sample_resolution
+        self.vis_resolution = cfg.vis_resolution
+        self.timestep = -1
+        self.tb: Optional[MetricsWriter] = None
+
+        # early-stop constants; patience/threshold/factor come from cfg
+        self.min_lr = 1.1e-8
+        self.early_stop_plateau = cfg.plateau_patience
+        self.train_step = 0
+
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self.fields: Dict[str, Any] = {}   # name -> parameter list
+        self.networks: Dict[str, Any] = {}  # name -> MLP
+        self._solvers: Dict[str, Solver] = {}
+        # one record per fit: timestep, phase tag, iterations, wall seconds
+        self.phase_timings: list = []
+
+    # ---- construction ----
+    def _create_field(self, name: str, in_dim: int, out_dim: int):
+        """Create a network + init params from the model's generator."""
+        net = get_network(self.cfg, in_dim, out_dim)
+        self.networks[name] = net
+        self.fields[name] = net.init(self.generator)
+        return net
+
+    # ---- protocol ----
+    def initialize(self):
+        raise NotImplementedError
+
+    def step(self):
+        raise NotImplementedError
+
+    def write_output(self, output_folder: str):
+        pass
+
+    # ---- timestep orchestration ----
+    def begin_timestep(self):
+        self.timestep += 1
+        if self.tb is not None:
+            self.tb.close()
+        self.tb = MetricsWriter(
+            os.path.join(self.cfg.log_dir, f"t{self.timestep:03d}"),
+            write_tb=self.cfg.write_tb)
+
+    def end_timestep(self):
+        self.save_ckpt()
+
+    # ---- training loop ----
+    def _run_phase(self, tag: str, loss_fn: LossFn, sample_fn: SampleFn,
+                   params, aux=None, vis_fn: Optional[Callable] = None):
+        """Fit `params` by minimizing sum(loss_fn(params, sample_fn(),
+        aux).values()). Scalars are logged per iteration; the optional
+        vis_fn(params) runs every cfg.vis_frequency iterations (rounded to
+        chunk boundaries)."""
+        if tag not in self._solvers:
+            self._solvers[tag] = Solver(
+                loss_fn, sample_fn, lr=self.cfg.lr,
+                max_n_iters=self.max_n_iters,
+                chunk_size=self.cfg.chunk_size,
+                early_stop=self.cfg.early_stop,
+                plateau_patience=self.early_stop_plateau,
+                plateau_threshold=self.cfg.plateau_threshold,
+                plateau_factor=self.cfg.plateau_factor,
+                early_stop_min_lr=self.min_lr,
+                debug_nan=self.cfg.debug_nan)
+        solver = self._solvers[tag]
+
+        # thread a callback only when an in-training vis can actually fire;
+        # otherwise it would still cost a figure render per phase. Without
+        # matplotlib no figure can be drawn (write_output warns of it).
+        want_vis = (vis_fn is not None and self.tb is not None
+                    and self.cfg.vis_frequency <= self.max_n_iters
+                    and viz.available())
+        callback = None
+        if want_vis:
+            last_vis = [0]
+
+            def callback(it, p, losses):
+                self.train_step = it
+                if (it - last_vis[0] >= self.cfg.vis_frequency
+                        or last_vis[0] == 0):
+                    last_vis[0] = it
+                    vis_fn(p)
+
+        tic = time.perf_counter()
+        result = solver.fit(params, aux, callback=callback)
+        # fit ends in a host fetch of the last chunk's scalars, so the device
+        # work of this phase is done here
+        self.phase_timings.append({"timestep": self.timestep, "tag": tag,
+                                   "n_iters": result.n_iters,
+                                   "sec": time.perf_counter() - tic})
+        self.train_step = result.n_iters
+
+        # per-iteration scalar history -> metrics sink (one bulk write)
+        if self.tb is not None:
+            hist = {k: np.asarray(v) for k, v in result.history.items()}
+            n = len(hist.get("main", []))
+            self.tb.add_scalars_history(tag, hist, stride=max(1, n // 2000))
+        return result
+
+    # ---- checkpointing ----
+    def save_ckpt(self, name: Optional[str] = None):
+        if name is None:
+            path = os.path.join(self.cfg.model_dir,
+                                f"ckpt_step_t{self.timestep:03d}.npz")
+        else:
+            path = os.path.join(self.cfg.model_dir, f"ckpt_{name}.npz")
+        save_pytree(path, self.fields, metadata={"timestep": self.timestep})
+
+    def load_ckpt(self, name):
+        if isinstance(name, int):
+            path = os.path.join(self.cfg.model_dir,
+                                f"ckpt_step_t{name:03d}.npz")
+        elif name == "latest":
+            steps = [
+                f for f in os.listdir(self.cfg.model_dir)
+                if f.startswith("ckpt_step_t") and f.endswith(".npz")]
+            if not steps:
+                raise FileNotFoundError(
+                    f"no per-step checkpoints in {self.cfg.model_dir}")
+            # numeric max, not lexicographic: 't1000' sorts before 't999'
+            latest = max(steps, key=lambda f: int(f[len("ckpt_step_t"):-4]))
+            path = os.path.join(self.cfg.model_dir, latest)
+        else:
+            path = os.path.join(self.cfg.model_dir, f"ckpt_{name}.npz")
+        self.fields, meta = load_pytree(path, self.fields, device=self.device)
+        self.timestep = int(meta["timestep"])
