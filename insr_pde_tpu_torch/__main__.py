@@ -31,14 +31,16 @@ def build_model(cfg):
 def main(argv=None):
     cfg = parse_args(argv, phase="train")
     print(cfg)
-    # raises on an unported option or a missing card before any IO
+    # raises on an unported pde or a missing card before any IO
     model = build_model(cfg)
     cfg.setup_dirs()
 
-    if cfg.pde == "fluid" and cfg.n_timesteps > 1:
+    if (cfg.pde == "fluid" and cfg.fluid_step == "split"
+            and cfg.n_timesteps > 1):
         print("note: --fluid_step split is reference parity (first-order "
               "splitting bias ~6e-4/step on Taylor-Green, measured by the "
-              "JAX package); merged2/rk2 are not ported yet.")
+              "JAX package). `--fluid_step merged2 --advect_trace rk2` "
+              "measured 3x lower horizon error there (COMPARISON.md).")
 
     output_folder = os.path.join(cfg.exp_dir, "results")
     os.makedirs(output_folder, exist_ok=True)

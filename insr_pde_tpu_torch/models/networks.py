@@ -17,6 +17,7 @@ from typing import Any, List, Tuple
 import torch
 
 from ..ops.siren_forward import siren_forward
+from ..ops.siren_vgl import siren_vgl
 
 Params = List[Tuple[torch.Tensor, torch.Tensor]]  # [(W (in,out), b (out,)), ...]
 
@@ -112,10 +113,13 @@ class MLP:
                                     lambda x: self.apply(params, x), coords)
 
     def value_grad_laplacian(self, params: Params, coords: torch.Tensor):
-        """(u (N, m), J (N, d, m), L (N, m)); same dispatch as value_grad."""
+        """(u (N, m), J (N, d, m), L (N, m)) of (N, d) coords. The sine MLP
+        goes through `ops/siren_vgl.siren_vgl`: the fused forward and
+        backward kernels on a CUDA tensor, the plain chain and its
+        hand-derived reverse sweep on a CPU tensor. Not for `torch.func`
+        transforms; other networks take vmapped jacfwd/hessian."""
         if self._is_siren:
-            from ..ops.forward_laplacian import value_grad_laplacian as _vgl
-            return _vgl(params, coords)
+            return siren_vgl(params, coords)
         return _value_grad_laplacian_autodiff(
             self.point_fn(params), lambda x: self.apply(params, x), coords)
 

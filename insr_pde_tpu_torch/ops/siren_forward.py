@@ -43,37 +43,41 @@ def siren_forward_reference(params: Params,
     return h
 
 
-def _check(params: Params, coords: torch.Tensor) -> None:
+def check_inputs(params: Params, coords: torch.Tensor,
+                 name: str = "siren_forward") -> None:
+    """Raise on what the fused kernels do not take: f32 contiguous (N, d)
+    coords, 1..MAX_LAYERS layers of f32 contiguous (W (in, out), b (out,))
+    on the same device, every width up to MAX_WIDTH."""
     if not isinstance(coords, torch.Tensor):
-        raise TypeError("siren_forward: coords must be a torch.Tensor")
+        raise TypeError(f"{name}: coords must be a torch.Tensor")
     if coords.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"siren_forward: unsupported device {coords.device}")
+        raise ValueError(f"{name}: unsupported device {coords.device}")
     if coords.dtype != torch.float32:
-        raise TypeError(f"siren_forward: coords must be float32, got "
+        raise TypeError(f"{name}: coords must be float32, got "
                         f"{coords.dtype}")
     if coords.dim() != 2 or not coords.is_contiguous():
-        raise ValueError("siren_forward: coords must be a contiguous (N, d) "
+        raise ValueError(f"{name}: coords must be a contiguous (N, d) "
                          f"tensor, got shape {tuple(coords.shape)}")
     if not 1 <= len(params) <= MAX_LAYERS:
-        raise ValueError(f"siren_forward: 1..{MAX_LAYERS} layers supported, "
+        raise ValueError(f"{name}: 1..{MAX_LAYERS} layers supported, "
                          f"got {len(params)}")
     width = coords.shape[1]
     for i, (w, b) in enumerate(params):
         for t in (w, b):
             if t.dtype != torch.float32 or t.device != coords.device:
-                raise TypeError(f"siren_forward: layer {i} params must be "
+                raise TypeError(f"{name}: layer {i} params must be "
                                 f"float32 on {coords.device}")
             if not t.is_contiguous():
-                raise ValueError(f"siren_forward: layer {i} params must be "
+                raise ValueError(f"{name}: layer {i} params must be "
                                  "contiguous")
         if w.dim() != 2 or w.shape[0] != width or b.shape != (w.shape[1],):
             raise ValueError(
-                f"siren_forward: layer {i} has W {tuple(w.shape)}, b "
+                f"{name}: layer {i} has W {tuple(w.shape)}, b "
                 f"{tuple(b.shape)}; expected W ({width}, out), b (out,)")
         width = w.shape[1]
     widths = [coords.shape[1]] + [w.shape[1] for w, _ in params]
     if max(widths) > MAX_WIDTH:
-        raise ValueError(f"siren_forward: widths up to {MAX_WIDTH} are "
+        raise ValueError(f"{name}: widths up to {MAX_WIDTH} are "
                          f"supported, got {widths}")
 
 
@@ -130,7 +134,7 @@ def _forward(params: Params, coords: torch.Tensor) -> torch.Tensor:
     return siren_forward_reference(params, coords)
 
 
-def _pairs(flat) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+def pairs(flat) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
 
 
@@ -138,14 +142,14 @@ class _SirenForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords, *flat):
         ctx.save_for_backward(coords, *flat)
-        return _forward(_pairs(flat), coords)
+        return _forward(pairs(flat), coords)
 
     @staticmethod
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in saved]
-            out = siren_forward_reference(_pairs(leaves[1:]), leaves[0])
+            out = siren_forward_reference(pairs(leaves[1:]), leaves[0])
             grads = torch.autograd.grad(out, leaves, grad_out)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
@@ -155,7 +159,7 @@ def siren_forward(params: Params, coords: torch.Tensor) -> torch.Tensor:
     """Fused SIREN forward (sine hidden layers, linear output) of (N, d)
     f32 coords; the CUDA kernel on a CUDA tensor, the plain version on a CPU
     tensor."""
-    _check(params, coords)
+    check_inputs(params, coords)
     flat = [t for wb in params for t in wb]
     return _SirenForward.apply(coords, *flat)
 

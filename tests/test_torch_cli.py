@@ -1,7 +1,9 @@
-"""PyTorch port, entry point and package rules: `python -m insr_pde_tpu_torch
-fluid --device cpu` writes the JAX package's outputs; the unported options
-and a missing card raise; no module of the port (nor chip_smoke.py) imports
-JAX or the JAX package."""
+"""PyTorch port, entry points and package rules: `python -m insr_pde_tpu_torch
+fluid --device cpu` writes the JAX package's outputs with every fluid
+timestep option; a merged2 run resumes its trapezoidal chain from a
+checkpoint; `python -m insr_pde_tpu_torch.compare_fluid_tg` reports the
+Taylor-Green golden; the unported PDEs and networks and a missing card raise;
+no module of the port (nor chip_smoke.py) imports JAX or the JAX package."""
 
 import json
 import os
@@ -60,12 +62,62 @@ def test_cli_profile_dir_writes_trace(tmp_path):
         assert json.load(f)["traceEvents"]
 
 
+SPLIT = ["advect_velocity", "solve_pressure", "projection"]
+
+
+@pytest.mark.parametrize("extra,tags", [
+    (["--fluid_step", "merged"], ["solve_pressure_merged", "project_advect"]),
+    (["--fluid_step", "merged2", "--advect_trace", "rk2", "--advect_sobolev",
+      "0.3"], ["solve_pressure_m2boot", "solve_pressure_merged2",
+               "project_advect2"]),
+    (["--advect_scheme", "maccormack", "--advect_sobolev", "0.5"], SPLIT),
+    (["--advect_trace", "rk2"], SPLIT)])
+def test_cli_runs_every_fluid_option(tmp_path, extra, tags):
+    model = cli.main(["fluid", *TINY, *extra, "-T", "1", "--proj_dir",
+                      str(tmp_path), "--tag", "opt"])
+    exp = tmp_path / "opt"
+    u = np.load(exp / "results/t001.npy")
+    assert u.shape == (8, 8, 2) and np.isfinite(u).all()
+    assert [r["tag"] for r in model.phase_timings[1:]] == tags
+    with open(exp / "log/t001/scalars.jsonl") as f:
+        assert {json.loads(line)["tag"] for line in f} == set(tags)
+
+
+def test_cli_merged2_resume_continues_the_trapezoidal_chain(tmp_path):
+    """The checkpoint carries q_old (`pressure_prev`): a resumed merged2
+    run makes no second bootstrap solve."""
+    args = ["fluid", *TINY, "--fluid_step", "merged2", "--advect_trace",
+            "rk2", "--proj_dir", str(tmp_path), "--tag", "m2"]
+    first = cli.main(args + ["-T", "1"])
+    model = cli.main(args + ["-T", "2", "--ckpt", "latest"])
+    assert model.timestep == 2
+    assert [r["tag"] for r in model.phase_timings] == [
+        "solve_pressure_merged2", "project_advect2"]
+    # q_old is now the t=2 solve's pressure, no longer t=1's
+    assert not torch.equal(model.fields["pressure_prev"][0][0],
+                           first.fields["pressure"][0][0])
+    for (w, b), (pw, pb) in zip(model.fields["pressure_prev"],
+                                model.fields["pressure"]):
+        assert torch.equal(w, pw) and torch.equal(b, pb)
+
+
+def test_compare_fluid_tg_reports_every_timestep(capsys):
+    from insr_pde_tpu_torch import compare_fluid_tg
+    summary = compare_fluid_tg.main([
+        "--device", "cpu", "--timesteps", "1", "--sr", "8", "--layers", "2",
+        "--hidden", "8", "--iters", "30", "--eval_res", "16",
+        "--fluid_step", "merged2", "--advect_trace", "rk2"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [r["t"] for r in lines[:-1]] == [0, 1]
+    assert lines[-1] == summary and summary["device"] == "cpu"
+    assert all(0.0 < r["rel_l2"] < 2.0 and np.isfinite(r["amp"])
+               for r in lines[:-1])
+    assert summary["rel_l2_final"] == lines[1]["rel_l2"]
+
+
 @pytest.mark.parametrize("extra", [
     ["advection"], ["elasticity"],
-    ["fluid", "--fluid_step", "merged2"],
-    ["fluid", "--advect_scheme", "maccormack"],
-    ["fluid", "--advect_trace", "rk2"],
-    ["fluid", "--advect_sobolev", "0.5"],
     ["fluid", "--network", "hashgrid"]])
 def test_unported_paths_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
