@@ -25,9 +25,20 @@ result line):
      just after; checks finite fields, every kernel of the path launched,
      and velocity rel L2 and amplitude against analytic Taylor-Green at
      t = 0, 1 and 2;
-  6. trace: the device busy share of each step phase of both paths under
-     torch.profiler (short extra fits, outside the paths' counts);
-  7. one JSON line of kernel records, the nvidia-smi line, and the last
+  6. advection kernel: the advect Adam fit (`advect_fit`, one launch per
+     chunk) against its plain eager loop on the same point tables and
+     starting state, at the JAX pin (2x20, 128 + 16 points, 60 iterations),
+     at the main path's shape (5,000 + 50 points, one chunk of 250) and with
+     a patience that makes the early-stop latch fire inside the chunk;
+  7. advection path: `python -m insr_pde_tpu_torch advection` (the flags of
+     scripts/advect1D.sh, SIREN 2x20, -sr 5000, T=3) in-process, counters
+     set to 0 just before and read just after; checks the launches per
+     step, finite fields, the outputs, and the field's rel L2 against the
+     analytic solution at every t;
+  8. trace: the device busy share of each step phase of the fluid paths
+     and of the advect phase (fused and eager) under torch.profiler (short
+     extra fits, outside the paths' counts);
+  9. one JSON line of kernel records, the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -70,6 +81,9 @@ FLUID_ARGS = ["fluid", "--init_cond", "taylorgreen", "--num_hidden_layers",
               str(MAX_ITERS), "--chunk_size", "250", "--no_backup"]
 MERGED2_ARGS = ["--fluid_step", "merged2", "--advect_trace", "rk2",
                 "--advect_sobolev", "0.3"]
+# the kernels of the fluid paths and their least launches per run
+FLUID_KERNELS = {"siren_forward": T_STEPS + 1, "siren_vgl_forward": 1,
+                 "siren_vgl_backward": 1}
 
 # The JAX pins of the value+gradient+Laplacian kernels (d, m, hidden layers,
 # width, N) (tools/experiments/test_pallas_vgl.py), the pressure phase's
@@ -88,6 +102,36 @@ VGL_MAIN_SHAPE = "pressure_16384"
 VGL_FWD_TOL = {"u": (1e-5, 1e-5), "J": (1e-5, 1e-4), "L": (1e-4, 2e-3)}
 VGL_BWD_TOL = (1e-4, 5e-3)
 VGL_BWD_L_ONLY_TOL = (5e-3, 1e-3)
+
+# The advection path: scripts/advect1D.sh (SIREN 2x20, -sr 5000 = 5,000
+# collocation and 50 boundary points per Adam iteration) cut to T=3 and
+# ADV_ITERS Adam iterations per fit (the script runs T=240 at up to 20,000).
+ADV_STEPS = 3
+ADV_ITERS = 3000
+ADV_CHUNK = 250
+ADV_ARGS = ["advection", "--init_cond", "example1", "--num_hidden_layers",
+            "2", "--hidden_features", "20", "-sr", "5000", "--dt", "0.05",
+            "-T", str(ADV_STEPS), "--max_n_iters", str(ADV_ITERS),
+            "--chunk_size", str(ADV_CHUNK), "--no_backup"]
+# Field rel L2 against the analytic solution on the -vr 500 grid at every t
+# (ADV_REL_L2_JAX: the JAX package at the same config and budget on the
+# CPU, `python main.py advection ... -T 3 --max_n_iters 3000`, t = 0..3).
+# The bar is 3x the largest of them: another point draw moves the fit by
+# less, a fit that did not converge or a wrong term by far more.
+ADV_REL_L2_JAX = (2.18e-3, 1.97e-3, 2.02e-3, 2.10e-3)
+ADV_REL_L2_BAR = 6.5e-3
+ADV_WIDTHS = [1, 20, 20, 20, 1]
+# The advect fit's cases (name, N, NB, iterations, patience, rel threshold):
+# the JAX pin (tools/experiments/test_pallas_trainer.py:19-20), the main
+# path's chunk, and a patience and threshold that make the early-stop latch
+# fire inside the chunk. Tolerances: the pin's, loss history rtol 2e-3 and
+# params atol 5e-5 (:76-81), and equal `active` flags.
+ADV_CASES = [("pin_128+16_60it", 128, 16, 60, 500, 1e-4),
+             ("main_5000+50_250it", 5000, 50, ADV_CHUNK, 500, 1e-4),
+             ("latch_128+16_60it", 128, 16, 60, 2, 0.9)]
+ADV_MAIN_CASE = "main_5000+50_250it"
+ADV_HIST_RTOL = 2e-3
+ADV_PARAM_ATOL = 5e-5
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -212,7 +256,7 @@ def phase_device():
 def phase_build():
     from insr_pde_tpu_torch.ops import cuda_build
     tic = time.perf_counter()
-    logs = cuda_build.build(["siren_forward", "siren_vgl"])
+    logs = cuda_build.build(["siren_forward", "siren_vgl", "advect_fit"])
     print(f"[build] {time.perf_counter() - tic:.1f}s "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})", flush=True)
     for name, text in logs.items():
@@ -419,21 +463,27 @@ def phase_pressure_program(reps: int = 20):
 
 
 def _run_fluid(tag, extra):
+    return _run_entry(tag, FLUID_ARGS + extra)
+
+
+def _run_entry(tag, args):
     """One run of the port's entry point with every kernel's launch count
     set to 0 just before and read just after. Returns (counts, model,
     results dir, wall seconds)."""
     import torch
     from insr_pde_tpu_torch.__main__ import main
+    from insr_pde_tpu_torch.ops.advect_fit import advect_fit
     from insr_pde_tpu_torch.ops.siren_forward import siren_forward
     from insr_pde_tpu_torch.ops.siren_vgl import siren_vgl
 
     # the CLI's default project dir (ignored by git), inside the checkout
     proj_dir = os.path.join(REPO, "checkpoints", "chip_smoke")
     shutil.rmtree(os.path.join(proj_dir, tag), ignore_errors=True)
-    argv = FLUID_ARGS + extra + ["--proj_dir", proj_dir, "--tag", tag]
+    argv = args + ["--proj_dir", proj_dir, "--tag", tag]
     siren_forward.launches = 0
     siren_vgl.fwd_launches = 0
     siren_vgl.bwd_launches = 0
+    advect_fit.launches = 0
     # the entry point prints its whole config; keep its progress lines
     log = io.StringIO()
     tic = time.perf_counter()
@@ -448,7 +498,8 @@ def _run_fluid(tag, extra):
     wall = time.perf_counter() - tic
     counts = {"siren_forward": siren_forward.launches,
               "siren_vgl_forward": siren_vgl.fwd_launches,
-              "siren_vgl_backward": siren_vgl.bwd_launches}
+              "siren_vgl_backward": siren_vgl.bwd_launches,
+              "advect_fit": advect_fit.launches}
 
     for name, params in model.fields.items():
         for w, b in params:
@@ -485,10 +536,12 @@ def _check_outputs(tag, exp_dir):
 
 
 def _check_launches(tag, counts, least):
-    for name, n in counts.items():
-        if n < least.get(name, 1):
-            raise RuntimeError(f"[{tag}] {name} launched {n} times on this "
-                               f"path, expected >= {least.get(name, 1)}")
+    """Every kernel of the path (the keys of `least`) launched at least that
+    often in the path's run."""
+    for name, n_least in least.items():
+        if counts[name] < n_least:
+            raise RuntimeError(f"[{tag}] {name} launched {counts[name]} times "
+                               f"on this path, expected >= {n_least}")
     print(f"[{tag}] kernel launches on this path: {json.dumps(counts)}",
           flush=True)
 
@@ -552,7 +605,7 @@ def phase_main_path():
                            "forward of the final field")
 
     _print_phase_times("main", model, wall, "split")
-    _check_launches("main", counts, {"siren_forward": T_STEPS + 1})
+    _check_launches("main", counts, FLUID_KERNELS)
     return counts, model
 
 
@@ -576,42 +629,69 @@ def phase_merged2_path():
         if not rel < TG_REL_L2_BAR:
             raise RuntimeError(f"[merged2] t={t} misses the Taylor-Green bar")
     _print_phase_times("merged2", model, wall, "merged2")
-    _check_launches("merged2", counts, {"siren_forward": T_STEPS + 1})
+    _check_launches("merged2", counts, FLUID_KERNELS)
     return counts, model
 
 
-def phase_trace(split_model, merged2_model, iters: int = 50,
+def phase_trace(split_model, merged2_model, adv_model, iters: int = 50,
                 merged2_iters: int = 10):
-    """Device busy share of each step phase of both paths: one more fit of
-    `iters` Adam iterations per split phase (`merged2_iters` per merged2
-    phase, whose iterations run ~1,000 device and many more host events
-    each), from each path's final fields, under torch.profiler. Busy = the summed duration of the device events (one
-    stream, so they do not overlap); the profiler's own host cost makes the
-    idle share an upper bound, so the same fit's wall time without it is
-    printed beside. Not part of the paths' launch counts."""
+    """Device busy share of each step phase of the fluid paths and of the
+    advect phase: one more fit of `iters` Adam iterations per split phase
+    (`merged2_iters` per merged2 phase, whose iterations run ~1,000 device
+    and many more host events each; one chunk of ADV_CHUNK through the
+    fused advect fit, and `iters` through the eager Solver on the same
+    loss), from each path's final fields, under torch.profiler. Busy = the
+    summed duration of the device events (one stream, so they do not
+    overlap); the profiler's own host cost makes the idle share an upper
+    bound, so the same fit's wall time without it is printed beside. Not
+    part of the paths' launch counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from insr_pde_tpu_torch.models.advection import FusedAdvectSolver
     from insr_pde_tpu_torch.models.solver import Solver
 
-    sm, mm = split_model, merged2_model
+    def eager(model, loss_fn, sample_fn, n):
+        return Solver(loss_fn, sample_fn, lr=model.cfg.lr, max_n_iters=n,
+                      chunk_size=n, early_stop=False)
+
+    sm, mm, am = split_model, merged2_model, adv_model
     v, p = sm.fields["velocity"], sm.fields["pressure"]
     mv, mp = mm.fields["velocity"], mm.fields["pressure"]
     mq = mm.fields["pressure_prev"]
+    af_field = am.fields["field"]
+    fused = FusedAdvectSolver(am._advect_tables, am.advect_solver.widths,
+                              dt=am.dt, vel=am.vel, lr=am.cfg.lr,
+                              max_n_iters=ADV_CHUNK, chunk_size=ADV_CHUNK,
+                              early_stop=False)
     phases = [
-        (sm, "advect_velocity", sm._advect_loss, v, {"prev": v}, iters),
-        (sm, "solve_pressure", sm._pressure_loss, p, {"vel": v}, iters),
-        (sm, "projection", sm._projection_loss, v, {"prev": v, "pressure": p},
-         iters),
-        (mm, "solve_pressure_merged2", mm._merged_pressure_loss, mp,
-         {"prev": mv, "p_old": mq}, merged2_iters),
-        (mm, "project_advect2", mm._merged_projection_loss, mv,
-         {"prev": mv, "p_old": mq, "pressure": mp}, merged2_iters)]
-    for model, tag, loss_fn, params, aux, iters in phases:
-        solver = Solver(loss_fn, model._points_with_bc, lr=model.cfg.lr,
-                        max_n_iters=iters, chunk_size=iters, early_stop=False)
+        ("advect_velocity",
+         eager(sm, sm._advect_loss, sm._points_with_bc, iters), v,
+         {"prev": v}, iters),
+        ("solve_pressure",
+         eager(sm, sm._pressure_loss, sm._points_with_bc, iters), p,
+         {"vel": v}, iters),
+        ("projection",
+         eager(sm, sm._projection_loss, sm._points_with_bc, iters), v,
+         {"prev": v, "pressure": p}, iters),
+        ("solve_pressure_merged2",
+         eager(mm, mm._merged_pressure_loss, mm._points_with_bc,
+               merged2_iters), mp, {"prev": mv, "p_old": mq}, merged2_iters),
+        ("project_advect2",
+         eager(mm, mm._merged_projection_loss, mm._points_with_bc,
+               merged2_iters), mv, {"prev": mv, "p_old": mq, "pressure": mp},
+         merged2_iters),
+        ("advection advect (fused kernel)", fused, af_field,
+         {"prev": af_field}, ADV_CHUNK),
+        ("advection advect (eager Solver)",
+         eager(am, am._advect_loss, am._advect_points, iters), af_field,
+         {"prev": af_field}, iters)]
+    for tag, solver, params, aux, iters in phases:
+        solver.fit(params, aux)
+        torch.cuda.synchronize()
         tic = time.perf_counter()
         solver.fit(params, aux)
+        torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - tic) / iters * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -627,11 +707,179 @@ def phase_trace(split_model, merged2_model, iters: int = 50,
             continue
         beside = (f" (eager chain: {EAGER_CHAIN_PRESSURE_EVENTS})"
                   if tag == "solve_pressure" else "")
-        print(f"[trace] {tag}: {len(dev) / iters:.1f} device events/iter"
-              f"{beside}, device busy {busy_ms:.4f} ms/iter of {wall_ms:.4f} "
-              f"ms/iter wall under the profiler ({plain_ms:.4f} without): "
+        print(f"[trace] {tag}: {len(dev) / iters:.2f} device events/iter"
+              f"{beside}, device busy {busy_ms:.5f} ms/iter of {wall_ms:.5f} "
+              f"ms/iter wall under the profiler ({plain_ms:.5f} without): "
               f"busy share {busy_ms / wall_ms:.3f}, idle "
               f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+
+
+def _advect_ops_per_iter(n, nb, widths):
+    """Operations of one advect Adam iteration (csrc/advect_fit.cu's note),
+    2 per multiply-add: per collocation point the forward with its tangent
+    through both nets (2 multiply-adds per weight each), the reverse sweep
+    (2 per weight of every layer but the first) and the weight gradients (2
+    per weight); per boundary point the value alone (1 per weight), its
+    sweep and its weight gradients (1 each); per sine unit and evaluation
+    ~6 more (bias, omega scale, sin, cos, two products); Adam ~15 per
+    parameter."""
+    layers = list(zip(widths[:-1], widths[1:]))
+    mac = sum(a * b for a, b in layers)
+    mac0 = layers[0][0] * layers[0][1]
+    units = sum(b for _, b in layers[:-1])
+    n_param = sum(a * b + b for a, b in layers)
+    col = 2 * (2 * mac + 2 * mac + 2 * (mac - mac0) + 2 * mac) + 18 * units
+    bnd = 2 * (mac + (mac - mac0) + mac) + 8 * units
+    return n * col + nb * bnd + 15 * n_param
+
+
+def _advect_bound_ms(n, nb, iters, widths):
+    """Least time of one launch of `iters` iterations: the points read once,
+    the state (params, prev, mu, nu) read and written once, the history
+    written; operations as counted above."""
+    n_param = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    bytes_ = 4 * (iters * (n + nb) + 7 * n_param + 4 * iters)
+    return _bound(iters * _advect_ops_per_iter(n, nb, widths), bytes_)
+
+
+def phase_advect_kernel():
+    """The advect Adam fit against its plain eager loop, on the same point
+    tables and starting state, at every case of ADV_CASES. Returns the
+    record at the main path's chunk (times per launch of ADV_CHUNK
+    iterations)."""
+    import torch
+    from insr_pde_tpu_torch.models.networks import MLP
+    from insr_pde_tpu_torch.models.solver import ravel
+    from insr_pde_tpu_torch.ops import advect_fit as af
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    half, lr = 2.0, 1e-3
+    record = None
+    for name, n, nb, iters, patience, thr in ADV_CASES:
+        net = MLP(1, 1, 2, 20)
+        p = ravel(net.init(gen))[0].contiguous()
+        q = ravel(net.init(gen))[0].contiguous()
+        # the TPU kernel's map from uniforms to points (pallas_trainer.py:196-199)
+        x = (torch.rand((iters, n), generator=gen, device=dev) * 2 - 1) * half
+        side = torch.where(torch.rand((iters, nb), generator=gen, device=dev)
+                           < 0.5, -1.0, 1.0)
+        xb = side * half + (torch.rand((iters, nb), generator=gen,
+                                       device=dev) * 2 - 1) * 1e-4
+        hp = af.AdvectFitHyper(dt=0.05, vel=0.25, lr=lr, min_scale=1e-8 / lr,
+                               stop_scale=1.1e-8 / lr,
+                               plateau_patience=patience,
+                               plateau_threshold=thr)
+        got, ref = af.init_state(p), af.init_state(p)
+        hist = af.advect_fit(got, q, x, xb, ADV_WIDTHS, hp)
+        torch.cuda.synchronize()
+        h_ref = af.advect_fit_reference(ref, q, x, xb, ADV_WIDTHS, hp)
+        torch.cuda.synchronize()
+        if not torch.equal(hist[:, 0], h_ref[:, 0]) or \
+                got.istate.tolist() != ref.istate.tolist():
+            raise RuntimeError(f"[kernel] advect_fit {name}: active flags "
+                               f"or scheduler state differ ({got.istate.tolist()}"
+                               f" vs {ref.istate.tolist()})")
+        n_active = int(hist[:, 0].sum().item())
+        rel = ((hist[:, 1:] - h_ref[:, 1:]).abs()
+               / h_ref[:, 1:].abs()).max().item()
+        err_h = _vgl_check(f"advect_fit {name} history", hist[:, 1:],
+                           h_ref[:, 1:], ADV_HIST_RTOL, 0.0)
+        err_p = _vgl_check(f"advect_fit {name} params", got.params,
+                           ref.params, 0.0, ADV_PARAM_ATOL)
+
+        def kernel_ms():
+            times = []
+            for _ in range(7):
+                s0 = af.init_state(p)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                af.launch(s0, q, x, xb, ADV_WIDTHS, hp, hist)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            return sorted(times)[len(times) // 2]
+
+        def plain_ms():
+            times = []
+            for _ in range(3):
+                s0 = af.init_state(p)
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                af.advect_fit_reference(s0, q, x, xb, ADV_WIDTHS, hp)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - tic) * 1e3)
+            return sorted(times)[len(times) // 2]
+
+        k_ms, p_ms = kernel_ms(), plain_ms()
+        bound_ms, bound_by = _advect_bound_ms(n, nb, iters, ADV_WIDTHS)
+        print(f"[kernel] advect_fit {name}: N={n} NB={nb} {iters} iterations "
+              f"({n_active} active, istate {got.istate.tolist()}) widths "
+              f"{ADV_WIDTHS}: history max rel err {rel:.3e} (abs {err_h:.3e}),"
+              f" params max abs err {err_p:.3e}; per launch kernel "
+              f"{k_ms:.4f} ms, plain loop {p_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}); per iteration kernel "
+              f"{k_ms / iters:.5f} ms, plain {p_ms / iters:.5f} ms, bound "
+              f"{bound_ms / iters:.6f} ms; 1 grid barrier per iteration",
+              flush=True)
+        if name == ADV_MAIN_CASE:
+            record = {"max_abs_err": max(err_h, err_p), "ms": k_ms,
+                      "plain_ms": p_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    return record
+
+
+def phase_advection_path():
+    """The advection path through the entry point; returns the launch counts
+    of this run and the model."""
+    import numpy as np
+    from insr_pde_tpu_torch.ops.sampling import sample_uniform
+
+    counts, model, exp_dir, wall = _run_entry("advection", ADV_ARGS)
+    results = os.path.join(exp_dir, "results")
+    vr = model.vis_resolution
+    x = (sample_uniform(vr, 1) * (model.length / 2.0)).numpy()[:, 0]
+    for t in range(ADV_STEPS + 1):
+        path = os.path.join(results, f"t{t:03d}.npz")
+        if not os.path.exists(path):
+            raise RuntimeError(f"[advection] missing output {path}")
+        u = np.load(path)["arr_0"]
+        if u.shape != (vr,) or not np.isfinite(u).all():
+            raise RuntimeError(f"[advection] t{t:03d}.npz: shape {u.shape} "
+                               "or non-finite values")
+        exact = np.exp(-0.5 * (x - model.vel * model.dt * t + 1.5) ** 2
+                       / 0.1 ** 2)
+        rel = float(np.linalg.norm(u - exact) / np.linalg.norm(exact))
+        print(f"[advection] t={t} field rel L2 vs analytic "
+              f"gaussian_like(x - vel dt t, mu=-1.5): {rel:.4e} (bar "
+              f"{ADV_REL_L2_BAR}; JAX package on the CPU "
+              f"{ADV_REL_L2_JAX[t]})", flush=True)
+        if not rel < ADV_REL_L2_BAR:
+            raise RuntimeError(f"[advection] t={t} misses the analytic bar")
+    ckpt = os.path.join(exp_dir, "model", f"ckpt_step_t{ADV_STEPS:03d}.npz")
+    if not os.path.exists(ckpt):
+        raise RuntimeError(f"[advection] missing checkpoint {ckpt}")
+
+    # one launch per chunk: ceil(iters / chunk) for a fit that ran its
+    # budget, one more than the full chunks before an early stop
+    chunk = model.advect_solver.chunk_size
+    fits = [r for r in model.phase_timings if r["tag"] == "advect"]
+    expect = sum(-(-r["n_iters"] // chunk) if r["n_iters"] >= ADV_ITERS
+                 else r["n_iters"] // chunk + 1 for r in fits)
+    if len(fits) != ADV_STEPS or counts["advect_fit"] != expect:
+        raise RuntimeError(f"[advection] advect_fit launched "
+                           f"{counts['advect_fit']} times over {len(fits)} "
+                           f"advect fits, expected {expect}")
+    print(f"[advection] wall {wall:.2f}s for T={ADV_STEPS} (init + "
+          f"{ADV_STEPS} steps, up to {ADV_ITERS} Adam iterations per fit)")
+    for rec in model.phase_timings:
+        print(f"[advection] t={rec['timestep']} {rec['tag']:10s} "
+              f"{rec['n_iters']} iters {rec['sec']:.3f}s "
+              f"{rec['sec'] / max(rec['n_iters'], 1) * 1e3:.4f} ms/iter")
+    _check_launches("advection", counts, {"advect_fit": expect})
+    return counts, model
 
 
 def _timed(name, fn, *args):
@@ -651,9 +899,14 @@ def main() -> int:
     records = {"siren_forward": _timed("siren_forward kernel", phase_kernels)}
     records.update(_timed("vgl kernels", phase_vgl_kernels))
     _timed("pressure program", phase_pressure_program)
+    records["advect_fit"] = _timed("advect_fit kernel", phase_advect_kernel)
     counts, split_model = _timed("main path", phase_main_path)
     _, merged2_model = _timed("merged2 path", phase_merged2_path)
-    _timed("trace", phase_trace, split_model, merged2_model)
+    adv_counts, adv_model = _timed("advection path", phase_advection_path)
+    _timed("trace", phase_trace, split_model, merged2_model, adv_model)
+    # each kernel's launches from the run of its own path: the fluid split
+    # main path, and the advection path for advect_fit
+    launches = {**counts, "advect_fit": adv_counts["advect_fit"]}
     sources = {
         "siren_forward": ("insr_pde_tpu_torch/csrc/siren_forward.cu",
                           "insr_pde_tpu/ops/pallas_siren.py:38"),
@@ -661,13 +914,15 @@ def main() -> int:
                               "tools/experiments/pallas_vgl.py:134"),
         "siren_vgl_backward": ("insr_pde_tpu_torch/csrc/siren_vgl.cu",
                                "tools/experiments/pallas_vgl.py:143"),
+        "advect_fit": ("insr_pde_tpu_torch/csrc/advect_fit.cu",
+                       "tools/experiments/pallas_trainer.py:142"),
     }
     kernels = [{
         "name": kname,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": counts[kname],
+        "launches": launches[kname],
         "max_abs_err": records[kname]["max_abs_err"],
         "ms": records[kname]["ms"],
         "plain_ms": records[kname]["plain_ms"],

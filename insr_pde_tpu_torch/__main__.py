@@ -1,6 +1,7 @@
 """Training entry point of the port (counterpart of the repo's `main.py`).
 
-    python -m insr_pde_tpu_torch fluid <the flags of main.py> [--device cpu]
+    python -m insr_pde_tpu_torch {fluid,advection} <the flags of main.py>
+        [--device cpu]
 
 t=0 fits the initial condition, t>=1 steps the PDE; outputs, checkpoints,
 `timings.jsonl` and per-timestep `log/tNNN/scalars.jsonl` are written as the
@@ -22,10 +23,12 @@ def build_model(cfg):
     if cfg.pde == "fluid":
         from .models.fluid import Fluid2DModel
         return Fluid2DModel(cfg)
-    item = {"advection": "'models/advection.py'",
-            "elasticity": "'Elasticity'"}.get(cfg.pde, "")
+    if cfg.pde == "advection":
+        from .models.advection import Advection1DModel
+        return Advection1DModel(cfg)
     raise NotImplementedError(
-        f"pde={cfg.pde} is not ported yet (ROADMAP.md Queue 1 {item})")
+        f"pde={cfg.pde} is not ported yet (ROADMAP.md Queue 1 "
+        "'Elasticity')")
 
 
 def main(argv=None):

@@ -81,24 +81,31 @@ class BaseModel:
         self.save_ckpt()
 
     # ---- training loop ----
+    def _solver_options(self) -> Dict[str, Any]:
+        """The Solver keywords every phase of this model takes."""
+        return dict(lr=self.cfg.lr, max_n_iters=self.max_n_iters,
+                    chunk_size=self.cfg.chunk_size,
+                    early_stop=self.cfg.early_stop,
+                    plateau_patience=self.early_stop_plateau,
+                    plateau_threshold=self.cfg.plateau_threshold,
+                    plateau_factor=self.cfg.plateau_factor,
+                    early_stop_min_lr=self.min_lr,
+                    debug_nan=self.cfg.debug_nan)
+
     def _run_phase(self, tag: str, loss_fn: LossFn, sample_fn: SampleFn,
-                   params, aux=None, vis_fn: Optional[Callable] = None):
+                   params, aux=None, vis_fn: Optional[Callable] = None,
+                   solver: Optional[Solver] = None):
         """Fit `params` by minimizing sum(loss_fn(params, sample_fn(),
-        aux).values()). Scalars are logged per iteration; the optional
+        aux).values()), or with a prebuilt `solver` (a Solver whose chunks
+        run elsewhere, e.g. in a fused kernel; loss_fn and sample_fn are then
+        its business). Scalars are logged per iteration; the optional
         vis_fn(params) runs every cfg.vis_frequency iterations (rounded to
         chunk boundaries)."""
-        if tag not in self._solvers:
-            self._solvers[tag] = Solver(
-                loss_fn, sample_fn, lr=self.cfg.lr,
-                max_n_iters=self.max_n_iters,
-                chunk_size=self.cfg.chunk_size,
-                early_stop=self.cfg.early_stop,
-                plateau_patience=self.early_stop_plateau,
-                plateau_threshold=self.cfg.plateau_threshold,
-                plateau_factor=self.cfg.plateau_factor,
-                early_stop_min_lr=self.min_lr,
-                debug_nan=self.cfg.debug_nan)
-        solver = self._solvers[tag]
+        if solver is None:
+            if tag not in self._solvers:
+                self._solvers[tag] = Solver(loss_fn, sample_fn,
+                                            **self._solver_options())
+            solver = self._solvers[tag]
 
         # thread a callback only when an in-training vis can actually fire;
         # otherwise it would still cost a figure render per phase. Without

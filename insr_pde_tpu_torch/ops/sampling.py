@@ -56,6 +56,35 @@ def sample_random(generator: torch.Generator, n: int,
     return -1.0 + 2.0 * u
 
 
+def sample_boundary(generator: torch.Generator, n: int, sdim: int,
+                    epsilon: float = 1e-4, batch: int = 0) -> torch.Tensor:
+    """Random points inside epsilon-shells of the boundary of [-1, 1]^sdim.
+    1D: n//2 points near -1, then n//2 near +1; 2D: n//4 per strip, in the
+    strip order y=-1, y=+1, x=-1, x=+1. In 1D, `batch` > 0 draws that many
+    independent sets at once, shape (batch, 2 * (n//2), 1)."""
+    dev = generator.device
+    if sdim == 1:
+        m = n // 2
+        lead = (batch,) if batch > 0 else ()
+        u = torch.rand((*lead, 2, m, 1), generator=generator, device=dev,
+                       dtype=torch.float32)
+        left = (-1.0 + 2.0 * u[..., 0, :, :]) * epsilon - 1.0
+        right = (-1.0 + 2.0 * u[..., 1, :, :]) * epsilon + 1.0
+        return torch.cat([left, right], dim=-2)
+    if batch:
+        raise NotImplementedError("sample_boundary: batch is 1D only")
+    if sdim == 2:
+        ranges = torch.tensor(_strip_ranges("vertical", epsilon)
+                              + _strip_ranges("horizontal", epsilon),
+                              dtype=torch.float32, device=dev)
+        m = n // 4
+        u = torch.rand((4, m, 2), generator=generator, device=dev,
+                       dtype=torch.float32)
+        lo, hi = ranges[..., 0], ranges[..., 1]
+        return (lo[:, None, :] + u * (hi - lo)[:, None, :]).reshape(4 * m, 2)
+    raise NotImplementedError(f"sample_boundary: sdim={sdim}")
+
+
 # lo/hi of each strip, (strip, axis, lo|hi). Naming follows the reference
 # quirk (`insr_pde_tpu/ops/sampling.py:72-97`): 'horizontal' means the x = ±1
 # strips (used for the x-velocity BC), 'vertical' the y = ±1 strips.

@@ -1,6 +1,6 @@
 """PyTorch port, entry points and package rules: `python -m insr_pde_tpu_torch
 fluid --device cpu` writes the JAX package's outputs with every fluid
-timestep option; a merged2 run resumes its trapezoidal chain from a
+timestep option, and so does `advection`; a merged2 run resumes its trapezoidal chain from a
 checkpoint; `python -m insr_pde_tpu_torch.compare_fluid_tg` reports the
 Taylor-Green golden; the unported PDEs and networks and a missing card raise;
 no module of the port (nor chip_smoke.py) imports JAX or the JAX package."""
@@ -45,6 +45,40 @@ def test_cli_writes_outputs(tmp_path):
     with open(exp / "log/t001/scalars.jsonl") as f:
         tags = {json.loads(line)["tag"] for line in f}
     assert tags == {"advect_velocity", "solve_pressure", "projection"}
+
+
+ADVECTION = ["advection", "--device", "cpu", "--init_cond", "example1",
+             "--num_hidden_layers", "2", "--hidden_features", "8", "-sr",
+             "64", "-vr", "32", "--dt", "0.05", "--max_n_iters", "20",
+             "--chunk_size", "10", "--no_backup"]
+
+
+def test_cli_advection_writes_outputs(tmp_path):
+    """`python -m insr_pde_tpu_torch advection` with the flags of
+    scripts/advect1D.sh at a tiny size: JAX's per-step .npz/.png, the
+    checkpoints and logs; the advect phase through `advect_fit`'s plain
+    version (the CPU)."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "insr_pde_tpu_torch", *ADVECTION, "-T", "2",
+         "--proj_dir", str(tmp_path), "--tag", "adv"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    exp = tmp_path / "adv"
+    for t in range(3):
+        for rel in (f"results/t{t:03d}.npz", f"results/t{t:03d}.png",
+                    f"model/ckpt_step_t{t:03d}.npz",
+                    f"log/t{t:03d}/scalars.jsonl"):
+            assert (exp / rel).exists(), rel
+    u = np.load(exp / "results/t002.npz")["arr_0"]
+    assert u.shape == (32,) and np.isfinite(u).all()
+    with open(exp / "log/t002/scalars.jsonl") as f:
+        assert {json.loads(line)["tag"] for line in f} == {"advect"}
+    # resumes from its checkpoint
+    model = cli.main(ADVECTION + ["-T", "3", "--proj_dir", str(tmp_path),
+                                  "--tag", "adv", "--ckpt", "latest"])
+    assert model.timestep == 3
+    assert [r["tag"] for r in model.phase_timings] == ["advect"]
 
 
 def test_cli_resume_continues_after_checkpoint(tmp_path):
@@ -117,7 +151,7 @@ def test_compare_fluid_tg_reports_every_timestep(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["advection"], ["elasticity"],
+    ["advection", "--network", "hashgrid"], ["elasticity"],
     ["fluid", "--network", "hashgrid"]])
 def test_unported_paths_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -147,6 +181,8 @@ def test_port_imports_no_jax():
         "m.startswith('insr_pde_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'insr_pde_tpu_torch.models.fluid' in names\n"
+        "assert 'insr_pde_tpu_torch.models.advection' in names\n"
+        "assert 'insr_pde_tpu_torch.ops.advect_fit' in names\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
