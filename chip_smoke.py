@@ -38,7 +38,25 @@ result line):
   8. trace: the device busy share of each step phase of the fluid paths
      and of the advect phase (fused and eager) under torch.profiler (short
      extra fits, outside the paths' counts);
-  9. one JSON line of kernel records, the nvidia-smi line, and the last
+  9. vortex default path: `python -m insr_pde_tpu_torch vortex` at
+     starterL.py's defaults (velocity formulation, 1,000 + 400 points x 10
+     slices, 400 x 16 basis, 3 Picard iterations of 2,000 Jacobi CGLS
+     iterations) in-process, counters set to 0 just before and read just
+     after; checks a finite residual, the field's shape, and that both
+     block-ELL kernels launched at least once per CGLS iteration; prints
+     the relative divergence;
+ 10. vortex channel path: `vortex --preset channel --picard_iters 3`
+     (scripts/vortex_channel.sh: stream formulation, 8,000 + 3,200 points x
+     10 slices, block-whitened chunked CGLS), counters as above; checks the
+     inlet error (bar 1e-2), a finite field with max |u| <= 100, and the
+     launches; prints the per-Picard timings;
+ 11. block-ELL kernels against their plain versions and the cuSPARSE
+     product (`torch.sparse` CSR, the yardstick) at the TPU kernel's scalar
+     ELL shape (J = 1, R 35,600, NNZ 768, 192,000 columns, random) and on
+     the channel path's assembled operator (R 243,210, S 12, J 16);
+ 12. trace: one 200-iteration CGLS chunk of each vortex path's system
+     under torch.profiler (outside the paths' counts);
+ 13. one JSON line of kernel records, the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -49,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -132,6 +151,22 @@ ADV_CASES = [("pin_128+16_60it", 128, 16, 60, 500, 1e-4),
 ADV_MAIN_CASE = "main_5000+50_250it"
 ADV_HIST_RTOL = 2e-3
 ADV_PARAM_ATOL = 5e-5
+
+
+# The vortex paths: starterL.py's defaults, and its channel preset at 3
+# Picard iterations (scripts/vortex_channel.sh). Bars on the channel path:
+# the inlet error, the repo's acceptance bar (COMPARISON.md:968-969; the JAX
+# package read 2.97e-3 at this config, COMPARISON.md:1005-1006), and max |u|
+# on the sampled field (the JAX package: 23.8).
+VORTEX_ARGS = ["vortex", "--n_rounds", "1"]
+CHANNEL_ARGS = ["vortex", "--preset", "channel", "--picard_iters", "3"]
+INLET_ERROR_BAR = 1e-2
+MAX_U_BAR = 100.0
+# block-ELL kernel checks: |kernel - plain| <= bar * max |plain| (the sums
+# run in another order; rmv's run over ~300 slots per block)
+BLOCK_ELL_BARS = {"block_ell_mv": 1e-5, "block_ell_rmv": 1e-4}
+# the TPU kernel's scalar ELL shape (tools/experiments/pallas_spmv.py:15-17)
+ELL_SHAPE = (35600, 768, 192000)
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -256,7 +291,8 @@ def phase_device():
 def phase_build():
     from insr_pde_tpu_torch.ops import cuda_build
     tic = time.perf_counter()
-    logs = cuda_build.build(["siren_forward", "siren_vgl", "advect_fit"])
+    logs = cuda_build.build(["siren_forward", "siren_vgl", "advect_fit",
+                             "block_ell"])
     print(f"[build] {time.perf_counter() - tic:.1f}s "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})", flush=True)
     for name, text in logs.items():
@@ -882,6 +918,292 @@ def phase_advection_path():
     return counts, model
 
 
+def _run_vortex(tag, args):
+    """One run of the vortex entry point with the block-ELL launch counts
+    set to 0 just before and read just after. Returns (counts, model,
+    output dir, wall seconds, the residuals the entry point printed)."""
+    import torch
+    from insr_pde_tpu_torch.__main__ import main
+    from insr_pde_tpu_torch.ops import block_ell
+
+    out_dir = os.path.join(REPO, "checkpoints", "chip_smoke", tag)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = args + ["--output_path", out_dir,
+                   "--log_dir", os.path.join(out_dir, "log")]
+    block_ell.mv_launches = 0
+    block_ell.rmv_launches = 0
+    log = io.StringIO()
+    tic = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            model = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for line in log.getvalue().splitlines():
+            if line.strip().startswith(("round:", "lstsq", "note:", "built ",
+                                        "warning:")):
+                print(f"[{tag}] {line.strip()}")
+    wall = time.perf_counter() - tic
+    counts = {"block_ell_mv": block_ell.mv_launches,
+              "block_ell_rmv": block_ell.rmv_launches}
+    residuals = [float(line.split(":")[1]) for line in
+                 log.getvalue().splitlines() if "lstsq residual:" in line]
+    if not residuals or not all(math.isfinite(v) for v in residuals):
+        raise RuntimeError(f"[{tag}] lstsq residuals {residuals}: missing or "
+                           "not finite")
+    return counts, model, out_dir, wall, residuals
+
+
+def _vortex_report(tag, model, counts, out_dir, wall):
+    """Checks the field file and that each kernel launched at least once
+    per CGLS iteration; prints the Picard timings. Returns the field."""
+    import numpy as np
+    field = np.load(os.path.join(out_dir, "field.npy"))
+    r = model.cfg.vis_resolution
+    expect = (model.cfg.time_num, r * r, 3)
+    if field.shape != expect or not np.isfinite(field).all():
+        raise RuntimeError(f"[{tag}] field.npy: shape {field.shape} (expected "
+                           f"{expect}) or non-finite values")
+    iters = sum(t["cgls_iters"] for t in model.picard_timings)
+    print(f"[{tag}] wall {wall:.2f}s (model build, {len(model.picard_timings)}"
+          f" Picard iterations, outputs); {iters} CGLS iterations")
+    for t in model.picard_timings:
+        print(f"[{tag}] picard {t['picard']}: assemble {t['assemble_s']}s, "
+              f"whiten {t['whiten_s']}s, solve {t['solve_s']}s "
+              f"({t['cgls_iters']} CGLS iterations, "
+              f"{t['solve_s'] / max(t['cgls_iters'], 1) * 1e3:.4f} ms/iter), "
+              f"operands {t['operand_mb']} MB")
+    _check_launches(tag, counts, {"block_ell_mv": iters,
+                                  "block_ell_rmv": iters})
+    return field
+
+
+def phase_vortex_default():
+    """starterL.py's default configuration through the port's entry point."""
+    from insr_pde_tpu_torch.models.vortex import relative_divergence
+    counts, model, out_dir, wall, res = _run_vortex("vortex_default",
+                                                    VORTEX_ARGS)
+    field = _vortex_report("vortex_default", model, counts, out_dir, wall)
+    print(f"[vortex_default] lstsq residual {res[-1]:.4e}, field {field.shape}, "
+          f"relative divergence {relative_divergence(model):.4f} (no bar: "
+          f"the velocity formulation cannot represent an incompressible "
+          f"field on this scene)", flush=True)
+    return counts, model
+
+
+def phase_vortex_channel():
+    """The channel preset at 3 Picard iterations through the entry point."""
+    import numpy as np
+    from insr_pde_tpu_torch.models.vortex import (inlet_error,
+                                                  relative_divergence)
+    counts, model, out_dir, wall, res = _run_vortex("vortex_channel",
+                                                    CHANNEL_ARGS)
+    field = _vortex_report("vortex_channel", model, counts, out_dir, wall)
+    inlet = inlet_error(model)
+    max_u = float(np.abs(field[..., :2]).max())
+    print(f"[vortex_channel] lstsq residual {res[-1]:.4e}, inlet error "
+          f"{inlet:.4e} (bar {INLET_ERROR_BAR}),"
+          f" max |u| {max_u:.3f} (bar {MAX_U_BAR}), relative divergence "
+          f"{relative_divergence(model):.4e}", flush=True)
+    if not inlet <= INLET_ERROR_BAR:
+        raise RuntimeError("[vortex_channel] the inlet error misses its bar")
+    if not max_u <= MAX_U_BAR:
+        raise RuntimeError("[vortex_channel] max |u| misses its bar")
+    return counts, model
+
+
+def _events_ms(fn, reps: int = 7, inner: int = 10) -> float:
+    """Device time of one call of fn: CUDA events around `inner` calls in a
+    row, median over `reps`. No CUDA graph (as `_median_ms` takes): the
+    cuSPARSE product it also times is not known to capture."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _block_ell_csr(vals, cols, n_blocks):
+    """The same operator and its transpose as torch.sparse CSR matrices with
+    scalar columns (int32 indices), for the cuSPARSE yardstick."""
+    import torch
+    R, S, J = vals.shape
+    dev = vals.device
+    col = (cols.long()[:, :, None] * J
+           + torch.arange(J, device=dev)).reshape(-1)
+    crow = torch.arange(0, R * S * J + 1, S * J, device=dev)
+    A = torch.sparse_csr_tensor(crow.int(), col.int(), vals.reshape(-1),
+                                size=(R, n_blocks * J),
+                                check_invariants=False)
+    row = torch.arange(R, device=dev).repeat_interleave(S * J)
+    At = torch.sparse_coo_tensor(torch.stack([col, row]), vals.reshape(-1),
+                                 size=(n_blocks * J, R)).coalesce()
+    At = At.to_sparse_csr()
+    At = torch.sparse_csr_tensor(At.crow_indices().int(),
+                                 At.col_indices().int(), At.values(),
+                                 size=At.shape, check_invariants=False)
+    return A, At
+
+
+def _check_rmv(name, op, r):
+    """block_ell_rmv on one more right-hand side against its plain version,
+    within its bar."""
+    import torch
+    from insr_pde_tpu_torch.ops import block_ell as be
+    got = be.block_ell_rmv(op.vals, op.cols, r, op.n_blocks, op.transpose())
+    ref = be.block_ell_rmv_reference(op.vals, op.cols, r, op.n_blocks)
+    err = (got - ref).abs().max().item()
+    bar = BLOCK_ELL_BARS["block_ell_rmv"] * ref.abs().max().item()
+    print(f"[kernel] block_ell_rmv {name}: max_abs_err {err:.3e} (bar "
+          f"{bar:.3e})", flush=True)
+    if not torch.isfinite(got).all() or not err <= bar:
+        raise RuntimeError(f"[kernel] block_ell_rmv {name}: max abs err "
+                           f"{err:.3e} beyond {bar:.3e}")
+
+
+def _block_ell_case(name, op, x, r):
+    """Both kernels on one operator against their plain versions and the
+    cuSPARSE product. Returns {kernel: record}."""
+    import torch
+    from insr_pde_tpu_torch.ops import block_ell as be
+    vals, cols, nb = op.vals, op.cols, op.n_blocks
+    R, S, J = vals.shape
+    t_index = op.transpose()
+    A_csr, At_csr = _block_ell_csr(vals, cols, nb)
+    nnz_t = t_index.order.numel()
+    # the bytes each kernel must move: mv reads every slot's vals and cols,
+    # x once and writes out; rmv reads only the slots the transpose index
+    # lists (the padding is left out), their vals, the index and its
+    # offsets, r once and writes out, and never reads cols
+    mv_bytes = 4 * (R * S * J + R * S + R + nb * J)
+    rmv_bytes = 4 * (nnz_t * J + nnz_t + (nb + 1) + R + nb * J)
+    runs = {
+        "block_ell_mv": (lambda: be.block_ell_mv(vals, cols, x),
+                         lambda: be.block_ell_mv_reference(vals, cols, x),
+                         lambda: A_csr @ x, 2 * R * S * J, mv_bytes),
+        "block_ell_rmv": (lambda: be.block_ell_rmv(vals, cols, r, nb,
+                                                   t_index),
+                          lambda: be.block_ell_rmv_reference(vals, cols, r,
+                                                             nb),
+                          lambda: At_csr @ r, 2 * nnz_t * J, rmv_bytes),
+    }
+    records = {}
+    for kname, (kernel, plain, library, ops_, bytes_) in runs.items():
+        got, ref, lib = kernel(), plain(), library()
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        lib_err = (lib - ref).abs().max().item()
+        bar = BLOCK_ELL_BARS[kname] * scale
+        if not torch.isfinite(got).all() or not err <= bar:
+            raise RuntimeError(f"[kernel] {kname} {name}: max abs err "
+                               f"{err:.3e} beyond {bar:.3e} "
+                               f"({BLOCK_ELL_BARS[kname]} max |plain|)")
+        if kname == "block_ell_rmv" and not torch.equal(got, kernel()):
+            raise RuntimeError(f"[kernel] {kname} {name}: two runs differ")
+        ms, plain_ms, lib_ms = (_events_ms(f) for f in (kernel, plain,
+                                                        library))
+        bound_ms, bound_by = _bound(ops_, bytes_)
+        print(f"[kernel] {kname} {name}: R={R} S={S} J={J} n_blocks={nb} "
+              f"(transpose index {nnz_t} slots) max_abs_err {err:.3e} (bar "
+              f"{bar:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"cuSPARSE CSR {lib_ms:.4f} ms (err {lib_err:.3e}), bound "
+              f"{bound_ms:.5f} ms ({bound_by}, {bytes_ / 1e6:.1f} MB)",
+              flush=True)
+        records[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms}
+    return records
+
+
+def phase_block_ell_kernels(channel_model):
+    """The block-ELL kernels at the TPU kernel's scalar shape (random) and
+    on the channel path's assembled operator. Returns the records of the
+    channel operator."""
+    import torch
+    from insr_pde_tpu_torch.ops.linalg import BlockSparse
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    R, nnz, n_cols = ELL_SHAPE
+    op = BlockSparse(torch.randn((R, nnz, 1), generator=g, device=dev),
+                     torch.randint(0, n_cols, (R, nnz), generator=g,
+                                   device=dev, dtype=torch.int32), n_cols)
+    _block_ell_case("scalar_ell_35600x768", op,
+                    torch.randn(n_cols, generator=g, device=dev),
+                    torch.randn(R, generator=g, device=dev))
+    A, b = channel_model.assemble(channel_model.params.u)
+    x = torch.randn(A.n_cols, generator=g, device=dev)
+    # a random r reaches every row's vals; the assembled rhs b (zero on the
+    # momentum, wall and init rows) is checked as well
+    r = torch.randn(A.vals.shape[0], generator=g, device=dev)
+    records = _block_ell_case("channel_operator", A, x, r)
+    _check_rmv("channel_operator_rhs", A, b)
+    return records
+
+
+def phase_vortex_trace(models, iters: int = 200):
+    """Device busy share of one CGLS chunk of `iters` iterations of each
+    vortex path's system (its own preconditioner, from the solved
+    coefficients), under torch.profiler, with the same chunk's wall time
+    unprofiled beside."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from insr_pde_tpu_torch.ops.linalg import cgls_sparse_chunked
+    for tag, model in models.items():
+        A, b = model.assemble(model.params.u)
+        precond = model._precondition()
+        x0 = model.params.u.reshape(-1) * model.cfg.warm_start
+
+        def chunk():
+            return cgls_sparse_chunked(A, b, x0, maxiter=iters, tol=0.0,
+                                       chunk=iters, precondition=precond,
+                                       damp=model.cfg.cgls_damp,
+                                       whitener=model._whitener)
+
+        chunk()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        _, info = chunk()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tic) / iters * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tic = time.perf_counter()
+            chunk()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - tic) / iters * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not dev:
+            print(f"[trace] {tag} CGLS: not measured (the profiler recorded "
+                  f"no device events); {plain_ms:.5f} ms/iter without it")
+            continue
+        busy_ms = sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3
+        by_name = {}
+        for e in dev:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[trace] {tag} CGLS chunk ({info['niter']} iterations, "
+              f"precondition {precond}): {len(dev) / iters:.2f} device "
+              f"events/iter, device busy {busy_ms:.5f} ms/iter of "
+              f"{wall_ms:.5f} ms/iter wall under the profiler "
+              f"({plain_ms:.5f} without): busy share "
+              f"{busy_ms / plain_ms:.3f} of the unprofiled wall; largest: "
+              + "; ".join(f"{k[:40]} {v / iters / 1e3:.5f} ms/iter"
+                          for k, v in top), flush=True)
+
+
 def _timed(name, fn, *args):
     tic = time.perf_counter()
     out = fn(*args)
@@ -904,9 +1226,18 @@ def main() -> int:
     _, merged2_model = _timed("merged2 path", phase_merged2_path)
     adv_counts, adv_model = _timed("advection path", phase_advection_path)
     _timed("trace", phase_trace, split_model, merged2_model, adv_model)
+    _, default_model = _timed("vortex default path", phase_vortex_default)
+    vortex_counts, channel_model = _timed("vortex channel path",
+                                          phase_vortex_channel)
+    records.update(_timed("block_ell kernels", phase_block_ell_kernels,
+                          channel_model))
+    _timed("vortex trace", phase_vortex_trace,
+           {"vortex_default": default_model, "vortex_channel": channel_model})
     # each kernel's launches from the run of its own path: the fluid split
-    # main path, and the advection path for advect_fit
-    launches = {**counts, "advect_fit": adv_counts["advect_fit"]}
+    # main path, the advection path for advect_fit, the vortex channel path
+    # for the block-ELL pair
+    launches = {**counts, "advect_fit": adv_counts["advect_fit"],
+                **vortex_counts}
     sources = {
         "siren_forward": ("insr_pde_tpu_torch/csrc/siren_forward.cu",
                           "insr_pde_tpu/ops/pallas_siren.py:38"),
@@ -916,6 +1247,11 @@ def main() -> int:
                                "tools/experiments/pallas_vgl.py:143"),
         "advect_fit": ("insr_pde_tpu_torch/csrc/advect_fit.cu",
                        "tools/experiments/pallas_trainer.py:142"),
+        "block_ell_mv": ("insr_pde_tpu_torch/csrc/block_ell.cu",
+                         "tools/experiments/pallas_spmv.py:46"),
+        # no TPU kernel: the JAX package's BlockSparse.rmv segment_sum
+        "block_ell_rmv": ("insr_pde_tpu_torch/csrc/block_ell.cu",
+                          "insr_pde_tpu/ops/linalg.py:486"),
     }
     kernels = [{
         "name": kname,
@@ -928,7 +1264,7 @@ def main() -> int:
         "plain_ms": records[kname]["plain_ms"],
         "bound_ms": records[kname]["bound_ms"],
         "bound_by": records[kname]["bound_by"],
-        "library_ms": None,
+        "library_ms": records[kname].get("library_ms"),
     } for kname, (source, replaces) in sources.items()]
     print(f"[done] {time.perf_counter() - tic:.1f}s in all")
     print(json.dumps({"kernels": kernels}))

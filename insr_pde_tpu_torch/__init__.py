@@ -6,9 +6,11 @@ module's counterpart is easy to find (`config`, `ops/…`, `models/…`,
 JAX or of `insr_pde_tpu`. Every TPU kernel of a ported path becomes a kernel
 written by hand for Hopper under `csrc/`, built by `nvcc` at first use.
 
-Ported so far: the 2D fluid split timestep (`models/fluid.py`) end to end,
-with the fused SIREN forward as a CUDA kernel (`ops/siren_forward.py`,
-`csrc/siren_forward.cu`). Entry point: `python -m insr_pde_tpu_torch fluid …`.
+Ported so far: the 2D fluid model (`models/fluid.py`), 1D advection
+(`models/advection.py`) and the vortex least-squares solve
+(`models/vortex.py`, driver `starterL.py`), with their TPU kernels as CUDA
+kernels under `csrc/`. Entry points: `python -m insr_pde_tpu_torch
+{fluid,advection,vortex} …`.
 """
 
 __version__ = "0.1.0"

@@ -2,6 +2,8 @@
 
     python -m insr_pde_tpu_torch {fluid,advection} <the flags of main.py>
         [--device cpu]
+    python -m insr_pde_tpu_torch vortex <the flags of starterL.py>
+        [--device cpu]
 
 t=0 fits the initial condition, t>=1 steps the PDE; outputs, checkpoints,
 `timings.jsonl` and per-timestep `log/tNNN/scalars.jsonl` are written as the
@@ -32,6 +34,11 @@ def build_model(cfg):
 
 
 def main(argv=None):
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "vortex":
+        from .starterL import main as vortex_main
+        return vortex_main(argv[1:])
     cfg = parse_args(argv, phase="train")
     print(cfg)
     # raises on an unported pde or a missing card before any IO

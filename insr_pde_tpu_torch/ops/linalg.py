@@ -1,0 +1,361 @@
+"""Matrix-free least squares over block-ELL operators (counterpart of the
+part of `insr_pde_tpu/ops/linalg.py` that the vortex matrix path runs).
+
+* `cgls`: damped CGLS with the best-iterate guard, the 1e4 * best_phi
+  divergence stop and an optional restart of each chunk from the best
+  iterate, the one loop of this module; `cgls_sparse_chunked` runs it on a
+  `BlockSparse` operator with Jacobi column scaling or the per-site-block
+  eigen-whitener, and `cgls_sparse` / `cgls_block_precond` are its long-loop
+  forms (the JAX package's entry points of those names).
+* `PaddedSparse` (scalar ELL) and `BlockSparse` (block ELL): on CUDA
+  tensors `mv` and `rmv` launch the hand-written kernels of
+  `ops/block_ell.py`; on CPU tensors they run their plain versions.
+* `block_gram`, `block_whitener_host` (eigendecomposition on the host in
+  float64), `_block_apply`, `_prewhiten_x0`.
+
+The JAX package runs each CGLS loop as a `lax.while_loop` that stops when
+its condition fails. Here every iteration evaluates that condition on the
+device as a flag that freezes the state (the iterate, residual, direction,
+gamma, count and best iterate keep their values once it is false), and the
+host reads the state once per chunk. The iterates and iteration counts are
+those of the while loop; the host never waits on the card inside a chunk.
+
+The JAX package's XLA workarounds (`_MATVEC_CHUNK_ELEMS`'s row chunking,
+`BlockSparseP`'s packed layout) exist for the TPU's T(8,128) tile padding:
+a contiguous (R, S, J) tensor has none, and the kernels need no
+temporaries, so they are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .block_ell import (TransposeIndex, block_ell_mv, block_ell_rmv,
+                        transpose_index)
+
+
+class BlockSparse:
+    """Block-ELL operator: each row holds S dense J-wide coefficient blocks
+    addressed by a block-column id; flat column = block * J + j.
+
+    vals (R, S, J) f32, cols (R, S) int32 (padding: val 0, col 0), n_blocks.
+    `row_slots` (R,), optional: each row's count of real slots, the rest
+    being padding; the transpose index leaves the padding out. The
+    transpose index is built at the first `rmv` (or `block_gram`) and kept:
+    the sparsity pattern of a model's assembly never changes, so a caller
+    may pass one built earlier (`t_index`)."""
+
+    def __init__(self, vals: torch.Tensor, cols: torch.Tensor, n_blocks: int,
+                 row_slots: Optional[torch.Tensor] = None,
+                 t_index: Optional[TransposeIndex] = None):
+        self.vals, self.cols, self.n_blocks = vals, cols, int(n_blocks)
+        self.row_slots = row_slots
+        self.t_index = t_index
+
+    @property
+    def bdim(self) -> int:
+        return self.vals.shape[-1]
+
+    @property
+    def n_cols(self) -> int:
+        return self.n_blocks * self.bdim
+
+    def transpose(self) -> TransposeIndex:
+        if self.t_index is None:
+            self.t_index = transpose_index(self.cols, self.n_blocks,
+                                           self.row_slots)
+        return self.t_index
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x, (R,)."""
+        return block_ell_mv(self.vals, self.cols, x)
+
+    def rmv(self, r: torch.Tensor) -> torch.Tensor:
+        """A^T @ r, (n_blocks * J,)."""
+        t_index = self.transpose() if self.vals.is_cuda else None
+        return block_ell_rmv(self.vals, self.cols, r, self.n_blocks, t_index)
+
+    def col_norms(self) -> torch.Tensor:
+        """Column 2-norms (exact where a row addresses a block at most
+        once, as the RBF assembly does), (n_blocks * J,)."""
+        sq = _pull_blocks(self, lambda V: (V * V).sum(1))
+        return torch.sqrt(sq.reshape(-1))
+
+
+class PaddedSparse(BlockSparse):
+    """ELL-style padded-row sparse matrix: vals (R, nnz) f32, cols (R, nnz)
+    int32 (padding: val 0, col 0), n_cols. The block-ELL operator at J = 1,
+    so its products run the same kernels."""
+
+    def __init__(self, vals: torch.Tensor, cols: torch.Tensor, n_cols: int):
+        super().__init__(vals.unsqueeze(-1), cols, n_cols)
+
+
+def _pull_blocks(A: BlockSparse, fn: Callable, slot_chunk: int = 65536):
+    """fn(V) for the value rows V (n, D, J) of every block column, where
+    block b's D rows are the slots addressing it in the transpose index's
+    order, zero-padded to the chunk's largest degree. Blocks are taken in
+    runs of at most `slot_chunk` padded slots, so the gathered temporary
+    stays ~slot_chunk * J floats (the JAX package's slot-chunked scan has
+    the same purpose). A fixed gather order and batched products make the
+    result the same on every run (`index_add_` on the card adds with
+    atomics in no fixed order)."""
+    J = A.bdim
+    order, offsets = A.transpose()
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    v = torch.cat([A.vals.reshape(-1, J),
+                   A.vals.new_zeros((1, J))])          # last row: padding
+    pad = v.shape[0] - 1
+    out, b0 = [], 0
+    while b0 < A.n_blocks:
+        b1, D = b0 + 1, max(counts[b0], 1)
+        while b1 < A.n_blocks and (b1 + 1 - b0) * max(D, counts[b1]) \
+                <= slot_chunk:
+            D = max(D, counts[b1])
+            b1 += 1
+        k = torch.arange(D, device=order.device)
+        start = offsets[b0:b1, None].to(torch.int64)
+        valid = k[None, :] < (offsets[b0 + 1:b1 + 1, None] - start)
+        pos = torch.clamp(start + k[None, :], max=max(order.numel() - 1, 0))
+        slots = torch.where(valid, order[pos].to(torch.int64), pad)
+        out.append(fn(v[slots]))
+        b0 = b1
+    return torch.cat(out)
+
+
+def block_gram(A: BlockSparse, slot_chunk: int = 65536) -> torch.Tensor:
+    """Per-block-column Gram blocks G[b] = sum over the slots addressing b
+    of vals[r,s,:] vals[r,s,:]^T, (n_blocks, J, J): the diagonal blocks of
+    A^T A."""
+    return _pull_blocks(A, lambda V: V.transpose(1, 2) @ V, slot_chunk)
+
+
+def _block_apply(W: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x = W y per block; y flat (n_blocks * J,)."""
+    return torch.bmm(W, y.reshape(W.shape[0], -1, 1)).reshape(-1)
+
+
+def _whiten_from_gram(G: np.ndarray, eig_floor: float = 1e-6) -> np.ndarray:
+    """Host-f64 inverse-sqrt factor of per-block Gram matrices:
+    W = V diag(1/sqrt(max(w, floor*wmax))) V^T, identity for zero blocks."""
+    w, V = np.linalg.eigh(G)
+    wmax = np.maximum(w[:, -1:], 0.0)
+    denom = np.maximum(w, np.maximum(eig_floor * wmax, 1e-300))
+    W = np.einsum("bij,bj,bkj->bik", V, 1.0 / np.sqrt(denom), V)
+    W[wmax[:, 0] <= 0.0] = np.eye(G.shape[-1])
+    return W
+
+
+def block_whitener_host(A: BlockSparse,
+                        eig_floor: float = 1e-6) -> torch.Tensor:
+    """The per-site-block whitener W[b] = G[b]^(-1/2) (floored), f32 on
+    A's device. The Gram reduce runs on the device; only the (n_blocks, J,
+    J) blocks go to the host, where the eigendecomposition runs in float64
+    (f32 eigh is far too inaccurate for these near-singular Grams, whose
+    eigenvalues spread beyond 1e9)."""
+    G = block_gram(A).cpu().numpy().astype(np.float64)
+    W = _whiten_from_gram(G, eig_floor).astype(np.float32)
+    return torch.from_numpy(W).to(A.vals.device)
+
+
+def _prewhiten_x0(W_f64: np.ndarray, x0: torch.Tensor,
+                  n_blocks: int) -> torch.Tensor:
+    """y0 solving W y0 = x0 per block, on the host in f64 (W is
+    near-singular by construction; an f32 solve can blow up a warm
+    start)."""
+    x0np = x0.detach().cpu().numpy()
+    if not np.any(x0np):
+        return torch.zeros_like(x0)
+    y0 = np.linalg.solve(
+        W_f64, x0np.astype(np.float64).reshape(n_blocks, -1)[..., None]
+    )[..., 0].reshape(-1).astype(np.float32)
+    return torch.from_numpy(y0).to(x0.device)
+
+
+# ------------------------------------------------------------------ CGLS
+
+
+class CGLSState(NamedTuple):
+    y: torch.Tensor      # iterate (in the scaled variable)
+    r: torch.Tensor      # residual b - A P y
+    p: torch.Tensor      # search direction
+    gamma: torch.Tensor  # |s|^2, s = P A^T r - damp^2 y
+    k: torch.Tensor      # iterations taken (int32)
+    phi: torch.Tensor    # |r|^2 + damp^2 |y|^2
+    best_y: torch.Tensor
+    best_phi: torch.Tensor
+
+
+def _start(mv, rmv, b, y0, d2) -> CGLSState:
+    r0 = b - mv(y0)
+    s0 = rmv(r0) - d2 * y0
+    gamma0 = torch.dot(s0, s0)
+    phi0 = torch.dot(r0, r0) + d2 * torch.dot(y0, y0)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    return CGLSState(y0, r0, s0, gamma0, k, phi0, y0, phi0)
+
+
+def _iterate(mv, rmv, st: CGLSState, stop2, d2, n: int,
+             maxiter: int) -> CGLSState:
+    """n CGLS iterations of the factored normal equations. Each one takes
+    effect only while (gamma > stop2) & (k < maxiter) & (phi < 1e4 *
+    best_phi), the JAX while loop's condition; once it fails the state
+    stays as it is."""
+    y, r, p, gamma, k, phi, by, bphi = st
+    for _ in range(n):
+        active = (gamma > stop2) & (k < maxiter) & (phi < 1e4 * bphi)
+        q = mv(p)
+        denom = torch.dot(q, q) + d2 * torch.dot(p, p)
+        alpha = gamma / torch.where(denom == 0, 1e-30, denom)
+        y_n = y + alpha * p
+        r_n = r - alpha * q
+        s = rmv(r_n) - d2 * y_n
+        gamma_n = torch.dot(s, s)
+        beta = gamma_n / torch.where(gamma == 0, 1e-30, gamma)
+        p_n = s + beta * p
+        phi_n = torch.dot(r_n, r_n) + d2 * torch.dot(y_n, y_n)
+        better = phi_n < bphi
+        by_n = torch.where(better, y_n, by)
+        bphi_n = torch.where(better, phi_n, bphi)
+        y, r, p = (torch.where(active, a, b_) for a, b_ in
+                   ((y_n, y), (r_n, r), (p_n, p)))
+        gamma, phi = (torch.where(active, a, b_) for a, b_ in
+                      ((gamma_n, gamma), (phi_n, phi)))
+        by, bphi = torch.where(active, by_n, by), torch.where(active, bphi_n,
+                                                              bphi)
+        k = k + active.to(torch.int32)
+    return CGLSState(y, r, p, gamma, k, phi, by, bphi)
+
+
+def _fetch(st: CGLSState):
+    """(k, gamma, phi, best_phi) on the host: one transfer."""
+    k, gamma, phi, bphi = torch.stack(
+        [st.k.to(torch.float64), st.gamma.double(), st.phi.double(),
+         st.best_phi.double()]).tolist()
+    return int(k), gamma, phi, bphi
+
+
+def _final(st: CGLSState) -> torch.Tensor:
+    # Healthy runs return the final iterate: near convergence phi sits at
+    # the f32 noise floor and cannot rank the still-improving iterates. The
+    # best iterate is the fallback when the run diverged.
+    return torch.where(st.phi <= 2.0 * st.best_phi, st.y, st.best_y)
+
+
+def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
+         maxiter: int = 500, tol: float = 1e-8, damp: float = 0.0,
+         check_every: int = 200, restart: bool = False):
+    """min_x |A x - b|^2 + damp^2 |x|^2 by CGLS (CG on the regularized
+    normal equations in factored form).
+
+    f32 CG on the normal equations loses conjugacy once cond(A^T A) nears
+    1/eps and can then diverge: the best iterate of phi = |Ax-b|^2 +
+    damp^2 |x|^2 is tracked and returned if the final one is worse than 2x
+    it, and the loop stops once phi has grown 1e4x above the best seen. The
+    host reads the state every `check_every` iterations to stop early; the
+    iterates do not depend on it. restart=True instead re-enters each such
+    chunk from the best iterate with an exactly recomputed residual: not
+    the long loop's iterates, but it bounds the f32 conjugacy drift that
+    blows up plain CGLS on the stream systems. Returns (x, info with
+    'niter', 'resnorm' |A^T(Ax-b) - damp^2 x|, 'best_phi')."""
+    d2 = torch.tensor(damp * damp, dtype=b.dtype, device=b.device)
+    st = _start(A_mv, At_mv, b, x0, d2)
+    stop2 = torch.tensor((tol ** 2) * float(st.gamma), dtype=b.dtype,
+                         device=b.device)
+    stop2_host = float(stop2)
+    it = 0
+    while True:
+        st = _iterate(A_mv, At_mv, st, stop2, d2,
+                      max(min(check_every, maxiter - it), 0), maxiter)
+        new_it, gamma, phi, bphi = _fetch(st)
+        if (new_it >= maxiter or gamma <= stop2_host or new_it == it
+                or phi >= 1e4 * bphi):
+            break
+        it = new_it
+        if restart:
+            # continue from the best point with an exact residual
+            y = torch.where(st.phi <= st.best_phi, st.y, st.best_y)
+            fresh = _start(A_mv, At_mv, b, y, d2)
+            better = fresh.phi < st.best_phi
+            st = CGLSState(y, fresh.r, fresh.p, fresh.gamma, st.k, fresh.phi,
+                           torch.where(better, y, st.best_y),
+                           torch.where(better, fresh.phi, st.best_phi))
+    return _final(st), {"niter": int(st.k), "resnorm": torch.sqrt(st.gamma),
+                        "best_phi": st.best_phi}
+
+
+def _jacobi(A: BlockSparse) -> torch.Tensor:
+    """1 / column norm, with columns under 1e-6 of the largest norm dropped
+    (scale 0: their coefficients are pinned to zero). A relative cutoff:
+    an absolute one lets a 1e-10 column be amplified 1e10x, which destroys
+    f32 CGLS on the scaled system."""
+    d = A.col_norms()
+    return torch.where(d > 1e-6 * torch.max(d), 1.0 / d,
+                       torch.zeros_like(d))
+
+
+def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
+                        maxiter: int = 500, tol: float = 1e-8,
+                        chunk: int = 200, precondition=True,
+                        damp: float = 0.0, restart: bool = False,
+                        whitener: Optional[torch.Tensor] = None):
+    """CGLS on a BlockSparse operator in chunks of `chunk` iterations, the
+    host reading the state between chunks: without `restart` the iterates
+    equal one long loop's (`cgls`).
+
+    precondition: False, True (Jacobi column scaling: min |A D y - b|^2 +
+    damp^2 |y|^2, x = D y, D = 1 / column norm) or "block" (the
+    per-site-block eigen-whitener; the scaled variable is y with x = W y).
+    whitener (block mode): a W from an earlier solve of the same pattern,
+    reused instead of recomputed; the W used is returned as info["W"]."""
+    t_whiten = 0.0
+    W = None
+    if precondition == "block":
+        tic = time.perf_counter()
+        W = whitener if whitener is not None else block_whitener_host(A)
+        # y0 solves W y0 = x0 per block, so a warm start survives the change
+        # of variable (x0 = 0 gives y0 = 0)
+        y0 = _prewhiten_x0(W.cpu().numpy().astype(np.float64), x0,
+                           A.n_blocks)
+        t_whiten = time.perf_counter() - tic
+
+        def apply_p(v):
+            return _block_apply(W, v)
+    else:
+        if precondition:
+            P = _jacobi(A)
+            y0 = x0 / torch.where(P == 0, 1.0, P)
+        else:
+            P = torch.ones(A.n_cols, dtype=b.dtype, device=b.device)
+            y0 = x0
+
+        def apply_p(v):
+            return P * v
+
+    y, info = cgls(lambda v: A.mv(apply_p(v)), lambda r: apply_p(A.rmv(r)),
+                   b, y0, maxiter=maxiter, tol=tol, damp=damp,
+                   check_every=chunk, restart=restart)
+    return apply_p(y), {**info, "t_whiten": t_whiten, "W": W}
+
+
+def cgls_sparse(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
+                maxiter: int = 500, tol: float = 1e-8,
+                precondition: bool = True, damp: float = 0.0):
+    """`cgls_sparse_chunked` as one long loop, Jacobi-scaled or not."""
+    return cgls_sparse_chunked(A, b, x0, maxiter=maxiter, tol=tol,
+                               precondition=precondition, damp=damp)
+
+
+def cgls_block_precond(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
+                       maxiter: int = 500, tol: float = 1e-8,
+                       damp: float = 0.0, eig_floor: float = 1e-6,
+                       W: Optional[torch.Tensor] = None):
+    """`cgls_sparse_chunked` as one long loop on the block-whitened system
+    A W; `W` defaults to `block_whitener_host(A, eig_floor)`."""
+    return cgls_sparse_chunked(
+        A, b, x0, maxiter=maxiter, tol=tol, precondition="block", damp=damp,
+        whitener=W if W is not None else block_whitener_host(A, eig_floor))
