@@ -29,7 +29,8 @@ result line):
      chunk) against its plain eager loop on the same point tables and
      starting state, at the JAX pin (2x20, 128 + 16 points, 60 iterations),
      at the main path's shape (5,000 + 50 points, one chunk of 250) and with
-     a patience that makes the early-stop latch fire inside the chunk;
+     a patience that makes the early-stop latch fire inside the chunk; two
+     runs of each case must give the same bits;
   7. advection path: `python -m insr_pde_tpu_torch advection` (the flags of
      scripts/advect1D.sh, SIREN 2x20, -sr 5000, T=3) in-process, counters
      set to 0 just before and read just after; checks the launches per
@@ -53,7 +54,8 @@ result line):
  11. block-ELL kernels against their plain versions and the cuSPARSE
      product (`torch.sparse` CSR, the yardstick) at the TPU kernel's scalar
      ELL shape (J = 1, R 35,600, NNZ 768, 192,000 columns, random) and on
-     the channel path's assembled operator (R 243,210, S 12, J 16);
+     the channel path's assembled operator (R 243,210, S 12, J 16), with
+     rmv also timed at other chunk sizes of its plan;
  12. trace: one 200-iteration CGLS chunk of each vortex path's system
      under torch.profiler (outside the paths' counts);
  13. one JSON line of kernel records, the nvidia-smi line, and the last
@@ -162,11 +164,17 @@ VORTEX_ARGS = ["vortex", "--n_rounds", "1"]
 CHANNEL_ARGS = ["vortex", "--preset", "channel", "--picard_iters", "3"]
 INLET_ERROR_BAR = 1e-2
 MAX_U_BAR = 100.0
+# The last lstsq residual of each vortex path with the earlier rmv (one warp
+# per block column, PERF.md section 6): the present rmv sums each column in
+# another order, so the residuals may move in their last digits.
+RESIDUAL_EARLIER_RMV = {"vortex_default": 26.678, "vortex_channel": 1.0496}
 # block-ELL kernel checks: |kernel - plain| <= bar * max |plain| (the sums
 # run in another order; rmv's run over ~300 slots per block)
 BLOCK_ELL_BARS = {"block_ell_mv": 1e-5, "block_ell_rmv": 1e-4}
 # the TPU kernel's scalar ELL shape (tools/experiments/pallas_spmv.py:15-17)
 ELL_SHAPE = (35600, 768, 192000)
+# slots per chunk of the rmv plan, timed beside the default
+RMV_CHUNK_SWEEP = (64, 128, 256, 512, 1024)
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -817,6 +825,11 @@ def phase_advect_kernel():
             raise RuntimeError(f"[kernel] advect_fit {name}: active flags "
                                f"or scheduler state differ ({got.istate.tolist()}"
                                f" vs {ref.istate.tolist()})")
+        again = af.init_state(p)
+        if not torch.equal(af.advect_fit(again, q, x, xb, ADV_WIDTHS, hp),
+                           hist) or not all(
+                torch.equal(a, b) for a, b in zip(again, got)):
+            raise RuntimeError(f"[kernel] advect_fit {name}: two runs differ")
         n_active = int(hist[:, 0].sum().item())
         rel = ((hist[:, 1:] - h_ref[:, 1:]).abs()
                / h_ref[:, 1:].abs()).max().item()
@@ -858,7 +871,8 @@ def phase_advect_kernel():
               f"{k_ms:.4f} ms, plain loop {p_ms:.4f} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}); per iteration kernel "
               f"{k_ms / iters:.5f} ms, plain {p_ms / iters:.5f} ms, bound "
-              f"{bound_ms / iters:.6f} ms; 1 grid barrier per iteration",
+              f"{bound_ms / iters:.6f} ms; 2 grid barriers per iteration; "
+              f"two runs gave the same bits",
               flush=True)
         if name == ADV_MAIN_CASE:
             record = {"max_abs_err": max(err_h, err_p), "ms": k_ms,
@@ -984,7 +998,8 @@ def phase_vortex_default():
     counts, model, out_dir, wall, res = _run_vortex("vortex_default",
                                                     VORTEX_ARGS)
     field = _vortex_report("vortex_default", model, counts, out_dir, wall)
-    print(f"[vortex_default] lstsq residual {res[-1]:.4e}, field {field.shape}, "
+    print(f"[vortex_default] lstsq residual {res[-1]:.4e} (earlier rmv "
+          f"{RESIDUAL_EARLIER_RMV['vortex_default']}), field {field.shape}, "
           f"relative divergence {relative_divergence(model):.4f} (no bar: "
           f"the velocity formulation cannot represent an incompressible "
           f"field on this scene)", flush=True)
@@ -1001,7 +1016,8 @@ def phase_vortex_channel():
     field = _vortex_report("vortex_channel", model, counts, out_dir, wall)
     inlet = inlet_error(model)
     max_u = float(np.abs(field[..., :2]).max())
-    print(f"[vortex_channel] lstsq residual {res[-1]:.4e}, inlet error "
+    print(f"[vortex_channel] lstsq residual {res[-1]:.4e} (earlier rmv "
+          f"{RESIDUAL_EARLIER_RMV['vortex_channel']}), inlet error "
           f"{inlet:.4e} (bar {INLET_ERROR_BAR}),"
           f" max |u| {max_u:.3f} (bar {MAX_U_BAR}), relative divergence "
           f"{relative_divergence(model):.4e}", flush=True)
@@ -1060,7 +1076,8 @@ def _check_rmv(name, op, r):
     within its bar."""
     import torch
     from insr_pde_tpu_torch.ops import block_ell as be
-    got = be.block_ell_rmv(op.vals, op.cols, r, op.n_blocks, op.transpose())
+    got = be.block_ell_rmv(op.vals, op.cols, r, op.n_blocks, op.transpose(),
+                           op.transposed_vals())
     ref = be.block_ell_rmv_reference(op.vals, op.cols, r, op.n_blocks)
     err = (got - ref).abs().max().item()
     bar = BLOCK_ELL_BARS["block_ell_rmv"] * ref.abs().max().item()
@@ -1079,6 +1096,7 @@ def _block_ell_case(name, op, x, r):
     vals, cols, nb = op.vals, op.cols, op.n_blocks
     R, S, J = vals.shape
     t_index = op.transpose()
+    vals_t = op.transposed_vals()
     A_csr, At_csr = _block_ell_csr(vals, cols, nb)
     nnz_t = t_index.order.numel()
     # the bytes each kernel must move: mv reads every slot's vals and cols,
@@ -1092,7 +1110,7 @@ def _block_ell_case(name, op, x, r):
                          lambda: be.block_ell_mv_reference(vals, cols, x),
                          lambda: A_csr @ x, 2 * R * S * J, mv_bytes),
         "block_ell_rmv": (lambda: be.block_ell_rmv(vals, cols, r, nb,
-                                                   t_index),
+                                                   t_index, vals_t),
                           lambda: be.block_ell_rmv_reference(vals, cols, r,
                                                              nb),
                           lambda: At_csr @ r, 2 * nnz_t * J, rmv_bytes),
@@ -1126,6 +1144,32 @@ def _block_ell_case(name, op, x, r):
     return records
 
 
+def _rmv_chunk_sweep(name, op, r):
+    """block_ell_rmv's time at other chunk sizes of its plan (the same
+    streamed values), each within its bar; the wrapper's default is
+    RMV_CHUNK."""
+    import torch
+    from insr_pde_tpu_torch.ops import block_ell as be
+    vals_t = op.transposed_vals()
+    ref = be.block_ell_rmv_reference(op.vals, op.cols, r, op.n_blocks)
+    bar = BLOCK_ELL_BARS["block_ell_rmv"] * ref.abs().max().item()
+    times = {}
+    for chunk in RMV_CHUNK_SWEEP:
+        t = be.transpose_index(op.cols, op.n_blocks, op.row_slots,
+                               chunk=chunk)
+        got = be.block_ell_rmv(op.vals, op.cols, r, op.n_blocks, t, vals_t)
+        err = (got - ref).abs().max().item()
+        if not torch.isfinite(got).all() or not err <= bar:
+            raise RuntimeError(f"[kernel] block_ell_rmv {name} chunk {chunk}: "
+                               f"max abs err {err:.3e} beyond {bar:.3e}")
+        times[chunk] = _events_ms(lambda: be.block_ell_rmv(
+            op.vals, op.cols, r, op.n_blocks, t, vals_t))
+    print(f"[kernel] block_ell_rmv {name} chunk sweep (slots per chunk: ms; "
+          f"default {be.RMV_CHUNK}): "
+          + ", ".join(f"{c}: {ms:.4f}" for c, ms in times.items()),
+          flush=True)
+
+
 def phase_block_ell_kernels(channel_model):
     """The block-ELL kernels at the TPU kernel's scalar shape (random) and
     on the channel path's assembled operator. Returns the records of the
@@ -1138,15 +1182,17 @@ def phase_block_ell_kernels(channel_model):
     op = BlockSparse(torch.randn((R, nnz, 1), generator=g, device=dev),
                      torch.randint(0, n_cols, (R, nnz), generator=g,
                                    device=dev, dtype=torch.int32), n_cols)
+    r = torch.randn(R, generator=g, device=dev)
     _block_ell_case("scalar_ell_35600x768", op,
-                    torch.randn(n_cols, generator=g, device=dev),
-                    torch.randn(R, generator=g, device=dev))
+                    torch.randn(n_cols, generator=g, device=dev), r)
+    _rmv_chunk_sweep("scalar_ell_35600x768", op, r)
     A, b = channel_model.assemble(channel_model.params.u)
     x = torch.randn(A.n_cols, generator=g, device=dev)
     # a random r reaches every row's vals; the assembled rhs b (zero on the
     # momentum, wall and init rows) is checked as well
     r = torch.randn(A.vals.shape[0], generator=g, device=dev)
     records = _block_ell_case("channel_operator", A, x, r)
+    _rmv_chunk_sweep("channel_operator", A, r)
     _check_rmv("channel_operator_rhs", A, b)
     return records
 

@@ -39,7 +39,8 @@ from . import cuda_build
 from .forward_laplacian import OMEGA_0, value_grad
 
 MAX_LAYERS = 16          # csrc/advect_fit.cu MAX_LAYERS
-ROW_CHOICES = (128, 64, 32)   # rows (= threads) per block, largest that fits
+MAX_HIDDEN = 80          # units per layer: a team of 8 threads, 10 outputs each
+ROW_STEP, MAX_ROWS = 8, 64    # rows per block (8 threads per row)
 SMEM_LIMIT = 232448      # 227 KB of dynamic shared memory per block
 
 
@@ -83,23 +84,30 @@ def n_params(widths: Sequence[int]) -> int:
 def smem_bytes(widths: Sequence[int], rows: int) -> int:
     """Dynamic shared memory of one block of `rows` rows (as
     `csrc/advect_fit.cu` smem_bytes): params, prev, mu, nu and the
-    gradient partial and loss sums; z and dz of every sine layer per row;
-    three two-channel activation/cotangent buffers; two loss terms per
-    row."""
-    rs = rows + 1
+    gradient partial and loss sums; h, dh, w cos(w z) and dz of every sine
+    layer per row; two two-channel ping-pong buffers (the previous net's
+    activations, then the cotangents); each row's x and two loss terms. Row
+    stride rows + 4."""
+    rs = rows + 4
     hidden = max(widths)
     n_sine = len(widths) - 2
-    floats = (5 * n_params(widths) + 4 + (n_sine + 3) * 2 * hidden * rs
-              + 2 * rs)
+    floats = (5 * n_params(widths) + 4 + (4 * n_sine + 4) * hidden * rs
+              + 3 * rs)
     return 4 * floats
 
 
-def plan_rows(widths: Sequence[int]) -> int:
-    """Rows per block: the largest of ROW_CHOICES whose buffers fit, or 0."""
-    for rows in ROW_CHOICES:
-        if smem_bytes(widths, rows) <= SMEM_LIMIT:
-            return rows
-    return 0
+def plan_rows(widths: Sequence[int], n_rows: int, sms: int) -> int:
+    """Rows per block (as `csrc/advect_fit.cu` plan_grid): the n_rows
+    points cut into one tile per SM, rounded up to ROW_STEP, within
+    ROW_STEP .. MAX_ROWS, less while the buffers do not fit; 0 if they do
+    not fit at ROW_STEP."""
+    if smem_bytes(widths, ROW_STEP) > SMEM_LIMIT:
+        return 0
+    rows = -(-(-(-n_rows // sms)) // ROW_STEP) * ROW_STEP
+    rows = min(max(rows, ROW_STEP), MAX_ROWS)
+    while rows > ROW_STEP and smem_bytes(widths, rows) > SMEM_LIMIT:
+        rows -= ROW_STEP
+    return rows
 
 
 def _check(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
@@ -111,11 +119,14 @@ def _check(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
     if widths[0] != 1 or widths[-1] != 1:
         raise ValueError(f"advect_fit: 1 input and 1 output only, got "
                          f"widths {widths}")
-    if plan_rows(widths) == 0:
+    if smem_bytes(widths, ROW_STEP) > SMEM_LIMIT:
         raise ValueError(
             f"advect_fit: widths {widths} do not fit the kernel's "
-            f"{SMEM_LIMIT}-byte shared memory even at {ROW_CHOICES[-1]} rows "
-            f"per block ({smem_bytes(widths, ROW_CHOICES[-1])} bytes)")
+            f"{SMEM_LIMIT}-byte shared memory even at {ROW_STEP} rows "
+            f"per block ({smem_bytes(widths, ROW_STEP)} bytes)")
+    if max(widths) > MAX_HIDDEN:
+        raise ValueError(f"advect_fit: at most {MAX_HIDDEN} units per layer, "
+                         f"got widths {widths}")
     p = n_params(widths)
     dev = state.params.device
     if dev.type not in ("cuda", "cpu"):
@@ -227,7 +238,12 @@ def advect_fit_reference(state: AdvectFitState, prev: torch.Tensor,
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("advect_fit")
+    return bind(cuda_build.load("advect_fit"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from
+    `csrc/advect_fit.cu` (or a copy of it)."""
     if lib.advect_fit_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         widths = ctypes.POINTER(ctypes.c_int)

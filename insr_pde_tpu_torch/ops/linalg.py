@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .block_ell import (TransposeIndex, block_ell_mv, block_ell_rmv,
-                        transpose_index)
+                        transpose_index, transpose_vals)
 
 
 class BlockSparse:
@@ -47,7 +47,9 @@ class BlockSparse:
     being padding; the transpose index leaves the padding out. The
     transpose index is built at the first `rmv` (or `block_gram`) and kept:
     the sparsity pattern of a model's assembly never changes, so a caller
-    may pass one built earlier (`t_index`)."""
+    may pass one built earlier (`t_index`). On the card the first `rmv`
+    also builds `vals_t`, the values in the index's order that the rmv
+    kernel streams, kept for every later product of this operator."""
 
     def __init__(self, vals: torch.Tensor, cols: torch.Tensor, n_blocks: int,
                  row_slots: Optional[torch.Tensor] = None,
@@ -55,6 +57,7 @@ class BlockSparse:
         self.vals, self.cols, self.n_blocks = vals, cols, int(n_blocks)
         self.row_slots = row_slots
         self.t_index = t_index
+        self.vals_t: Optional[torch.Tensor] = None
 
     @property
     def bdim(self) -> int:
@@ -74,10 +77,17 @@ class BlockSparse:
         """A @ x, (R,)."""
         return block_ell_mv(self.vals, self.cols, x)
 
+    def transposed_vals(self) -> torch.Tensor:
+        if self.vals_t is None:
+            self.vals_t = transpose_vals(self.vals, self.transpose())
+        return self.vals_t
+
     def rmv(self, r: torch.Tensor) -> torch.Tensor:
         """A^T @ r, (n_blocks * J,)."""
-        t_index = self.transpose() if self.vals.is_cuda else None
-        return block_ell_rmv(self.vals, self.cols, r, self.n_blocks, t_index)
+        if not self.vals.is_cuda:
+            return block_ell_rmv(self.vals, self.cols, r, self.n_blocks)
+        return block_ell_rmv(self.vals, self.cols, r, self.n_blocks,
+                             self.transpose(), self.transposed_vals())
 
     def col_norms(self) -> torch.Tensor:
         """Column 2-norms (exact where a row addresses a block at most
@@ -105,7 +115,7 @@ def _pull_blocks(A: BlockSparse, fn: Callable, slot_chunk: int = 65536):
     result the same on every run (`index_add_` on the card adds with
     atomics in no fixed order)."""
     J = A.bdim
-    order, offsets = A.transpose()
+    order, offsets = A.transpose()[:2]
     counts = (offsets[1:] - offsets[:-1]).tolist()
     v = torch.cat([A.vals.reshape(-1, J),
                    A.vals.new_zeros((1, J))])          # last row: padding

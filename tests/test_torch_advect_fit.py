@@ -14,8 +14,11 @@
 * The CUDA kernel runs only on the card (a `cuda`-marked case skips here).
   Its source is also compiled with the host C++ compiler against a small
   emulation of the CUDA runtime in which every block's threads run at once
-  as std::threads, joined by a per-block barrier and by a grid barrier
-  across all blocks, and held against the plain version."""
+  as std::threads, joined by a per-block barrier, a per-warp barrier (for
+  __syncwarp and for the shuffles, which exchange through a per-warp
+  buffer) and a grid barrier across all blocks, and held against the plain
+  version: at several blocks, several tiles per block, teams of 8 threads
+  per row at 64, 40, 16 and 8 rows per block, and ragged last tiles."""
 
 import ctypes
 import re
@@ -192,8 +195,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="iteration count"):
         af.advect_fit(state, _flat(q), x, xb[:1].contiguous(), WIDTHS,
                       _hyper())
-    assert af.plan_rows(WIDTHS) == 128
-    assert af.plan_rows([1, 40, 40, 40, 1]) == 64
+    wide = _flat(MLP(1, 1, 1, 81).init(torch.Generator().manual_seed(0)))
+    with pytest.raises(ValueError, match="80 units"):
+        af.advect_fit(af.init_state(wide), wide, x, xb, [1, 81, 81, 1],
+                      _hyper())
+    # the main chunk: 40-row blocks, a tile for each of 132 SMs; few rows:
+    # the fewest rows per block; wide nets: fewer rows, to fit
+    assert af.plan_rows(WIDTHS, 5050, 132) == 40
+    assert af.plan_rows(WIDTHS, 3000, 132) == 24
+    assert af.plan_rows(WIDTHS, 144, 132) == 8
+    assert af.plan_rows(WIDTHS, 50000, 132) == 64
+    assert af.plan_rows([1, 80, 80, 1], 5050, 132) == 16
+    assert af.plan_rows([1, 64, 64, 64, 1], 5050, 132) == 8
+    assert af.plan_rows([1, 200, 200, 200, 1], 5050, 132) == 0
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -244,11 +258,14 @@ def test_kernel_matches_plain_version_on_card(cuda_device, n, nb, n_iters,
 
 # The CUDA runtime as far as csrc/advect_fit.cu uses it, on the host: a
 # cooperative launch runs every block's threads at once, each block with its
-# own barrier and shared memory (NaN at the start, so a read before a write
-# shows), all of them joined by a grid barrier. Two SMs of one block each,
-# so that a block walks several tiles.
+# own barrier, a barrier per warp (__syncwarp, and the shuffles, which
+# exchange through a per-warp buffer between two of its waits) and shared
+# memory (NaN at the start, so a read before a write shows), all of them
+# joined by a grid barrier. `emu_sms` SMs (2 unless a test sets it) of one
+# block each, so that at 2 a block walks several tiles.
 _EMULATION_H = r"""
 #pragma once
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -260,6 +277,7 @@ using std::isfinite;
 #define __global__
 #define __device__
 #define __host__
+#define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(x)
 #define __restrict__
@@ -282,13 +300,28 @@ struct EmuBlock {
     std::barrier<> bar;
     std::atomic<int> acc{1};
     std::vector<float4> smem;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    std::vector<float> lanes;
     EmuBlock(unsigned threads, size_t n) : bar(threads),
-        smem(n, float4{NAN, NAN, NAN, NAN}) {}
+        smem(n, float4{NAN, NAN, NAN, NAN}), lanes(threads, NAN) {
+        for (unsigned w = 0; w * 32 < threads; ++w)
+            warps.emplace_back(new std::barrier<>(std::min(32u, threads - 32 * w)));
+    }
 };
+extern "C" { int emu_sms = 2; }
 inline thread_local EmuBlock* emu_block = nullptr;
 inline std::barrier<>* emu_grid = nullptr;
 #define smem4 (emu_block->smem.data())
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+inline void __syncwarp() { emu_block->warps[threadIdx.x / 32]->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+    EmuBlock& b = *emu_block;
+    b.lanes[threadIdx.x] = v;
+    __syncwarp();
+    const float r = b.lanes[threadIdx.x ^ off];
+    __syncwarp();
+    return r;
+}
 inline int __syncthreads_and(int p) {
     EmuBlock& b = *emu_block;
     b.bar.arrive_and_wait();
@@ -314,7 +347,7 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t
     *n = 1;
     return 0;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
 union cudaLaunchAttributeValue { int cooperative; };
 struct cudaLaunchAttribute { int id; cudaLaunchAttributeValue val; };
 struct cudaLaunchConfig_t {
@@ -379,19 +412,27 @@ def emulated_library(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", [
-    # (widths, n, nb, iterations, patience, threshold, NaN iteration)
-    (WIDTHS, 150, 16, 6, 500, 1e-4, None),      # 2 tiles of 128 rows
-    ([1, 12, 12, 1], 300, 40, 30, 2, 0.9, 4),   # latch fires; a NaN skip
-    ([1, 48, 48, 1], 70, 10, 3, 500, 1e-4, None),  # 64-row tiles
+    # (widths, n, nb, iterations, patience, threshold, NaN iteration, SMs)
+    (WIDTHS, 150, 16, 6, 500, 1e-4, None, 2),       # 64-row tiles, 2 blocks
+    ([1, 12, 12, 1], 300, 40, 30, 2, 0.9, 4, 2),    # latch fires; a NaN skip
+    ([1, 48, 48, 1], 70, 9, 3, 500, 1e-4, None, 2),    # 6 outputs a thread
+    (WIDTHS, 90, 10, 5, 500, 1e-4, None, 16),      # 8-row tiles, 13 blocks
+    ([1, 10, 10, 10, 1], 50, 13, 4, 500, 1e-4, None, 4),  # 16-row tiles;
+    # width 10: 2 outputs for 2 members of a team, 1 for the other 6
 ])
 def test_cuda_source_matches_plain_version_in_host_emulation(
         emulated_library, case):
-    widths, n, nb, n_iters, patience, thr, nan_it = case
+    """At every case the last tile is ragged (166, 340, 79, 100 and 63
+    rows at 64, 64, 40, 8 and 16 rows per block: 38, 20, 39, 4 and 15 rows
+    in the last); at 2 SMs a block walks several tiles; a second launch
+    gives the same bits."""
+    widths, n, nb, n_iters, patience, thr, nan_it, sms = case
     lib = emulated_library
-    rows = af.plan_rows(widths)
+    ctypes.c_int.in_dll(lib, "emu_sms").value = sms
+    rows = af.plan_rows(widths, n + nb, sms)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     grid = lib.advect_fit_grid(n + nb, len(widths) - 1, c_widths)
-    assert grid == min(2, -(-(n + nb) // rows))
+    assert grid == min(sms, -(-(n + nb) // rows))
     g = torch.Generator().manual_seed(5)
     net = MLP(1, 1, len(widths) - 3, widths[1])
     p, q = _flat(net.init(g)), _flat(net.init(g))
@@ -399,16 +440,22 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
     if nan_it is not None:
         xb[nan_it, 3] = float("nan")
     hp = _hyper(plateau_patience=patience, plateau_threshold=thr)
-    got, ref = af.init_state(p), af.init_state(p)
-    hist = torch.full((n_iters, 4), float("nan"))
-    partial = torch.full((2, grid, p.numel() + 2), float("nan"))
-    assert lib.advect_fit_f32(
-        got.params.data_ptr(), q.data_ptr(),
-        *(t.data_ptr() for t in got[1:]), x.data_ptr(),
-        xb.data_ptr(), hist.data_ptr(), partial.data_ptr(), n_iters, n, nb,
-        len(widths) - 1, c_widths, ctypes.cast(af._hyper_floats(hp),
-                                               ctypes.c_void_p),
-        patience, 1, None) == 0
+
+    def launch():
+        got = af.init_state(p)
+        hist = torch.full((n_iters, 4), float("nan"))
+        partial = torch.full((2, grid, p.numel() + 2), float("nan"))
+        assert lib.advect_fit_f32(
+            got.params.data_ptr(), q.data_ptr(),
+            *(t.data_ptr() for t in got[1:]), x.data_ptr(),
+            xb.data_ptr(), hist.data_ptr(), partial.data_ptr(), n_iters, n,
+            nb, len(widths) - 1, c_widths,
+            ctypes.cast(af._hyper_floats(hp), ctypes.c_void_p),
+            patience, 1, None) == 0
+        return got, hist
+
+    got, hist = launch()
+    ref = af.init_state(p)
     h_ref = af.advect_fit_reference(ref, q, x, xb, widths, hp)
     assert torch.equal(hist[:, 0], h_ref[:, 0])
     torch.testing.assert_close(hist[:, 1:], h_ref[:, 1:], rtol=2e-3, atol=0,
@@ -417,3 +464,26 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
     assert got.istate.tolist() == ref.istate.tolist()
     if nan_it is not None:
         assert ref.istate[2].item() == 1 and not h_ref[:, 0].all()
+    if sms > 2:
+        again, hist2 = launch()
+        assert torch.equal(hist2, hist)
+        for a, b in zip(again, got):
+            assert torch.equal(a, b)
+
+
+def test_phase_probe_stamps_every_marked_boundary():
+    """`advect_phases` turns each `// phase:` mark of the source into a stamp
+    (setup and end into the accumulators' reset and flush) and leaves the
+    rest of the source as it is."""
+    from insr_pde_tpu_torch import advect_phases
+    text = (cuda_build.CSRC / "advect_fit.cu").read_text()
+    stamped, names = advect_phases.stamped_source(text)
+    assert names == ["forward", "loss", "reverse", "grads", "barrier", "sum",
+                     "update"]
+    marks = re.findall(r"^\s*// phase: (\w+)", text, flags=re.M)
+    assert stamped.count("PHASE_STAMP(") - 1 == len(marks) - 2
+    assert stamped.count("PHASE_SETUP();") == 1
+    assert stamped.count("PHASE_END();") == 1
+    assert not re.search(r"^\s*// phase:", stamped, flags=re.M)
+    with pytest.raises(ValueError, match="anchor"):
+        advect_phases.stamped_source("int main() {}\n")

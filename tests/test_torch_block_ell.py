@@ -8,13 +8,19 @@
   sums of up to a few hundred terms in another order, rtol 1e-5 / atol
   1e-5 relative to the operands' scale.
 * The CSR transpose index lists every slot exactly once (every real slot,
-  and no padding slot, when the rows' real slot counts are given).
+  and no padding slot, when the rows' real slot counts are given); its
+  chunk plan tiles each block's slots in even chunks of at most C; the
+  streamed copy `vals_t` holds the slots' values in the index's order; and
+  the chunked two-pass sum the rmv kernel runs, written in plain PyTorch,
+  equals the plain rmv.
 * The CUDA kernels run only on the card (`cuda`-marked cases skip here).
   The source is also compiled with the host C++ compiler against a small
   emulation of the CUDA runtime in which every block's threads run at once
   as std::threads, warp shuffles exchanging through a per-block buffer
   between barriers, and held against the plain versions at J = 1, 4, 16
-  and 20.
+  and 20, on a skewed pattern (one block with many times the mean degree),
+  with blocks that no slot addresses, and with blocks cut into several
+  chunks; two runs give the same bits.
 """
 
 import ctypes
@@ -147,7 +153,7 @@ def test_padding_left_out_of_the_index_changes_nothing():
 
 def _pull_rmv(A, r):
     """The pull over A's transpose index, in numpy (what the kernel sums)."""
-    order, offsets = (t.numpy() for t in A.transpose())
+    order, offsets = (t.numpy() for t in A.transpose()[:2])
     v = A.vals.numpy().reshape(-1, A.bdim)
     S = A.cols.shape[1]
     out = np.zeros((A.n_blocks, A.bdim), np.float32)
@@ -183,12 +189,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         be.block_ell_mv(v, c, torch.from_numpy(x)[:-1])
     with pytest.raises(ValueError, match="vector"):
         be.block_ell_rmv(v, c, torch.from_numpy(r)[:-1], 6)
-    assert be.lanes(16, rows=True) == (16, 16)
-    assert be.lanes(1, rows=True) == (32, 1)
-    assert be.lanes(20, rows=True) == (16, 16)
-    assert be.lanes(4, rows=True) == (32, 4)
-    assert be.lanes(16, rows=False) == (32, 16)
-    assert be.lanes(48, rows=False) == (32, 32)
+    assert be.lanes(16) == (16, 16)
+    assert be.lanes(1) == (32, 1)
+    assert be.lanes(20) == (16, 16)
+    assert be.lanes(4) == (32, 4)
+    assert be.rmv_lanes(16) == (4, 4)
+    assert be.rmv_lanes(1) == (1, 1)
+    assert be.rmv_lanes(20) == (4, 4)
+    assert be.rmv_lanes(6) == (1, 4)
+    assert be.rmv_lanes(256) == (4, 32)
 
 
 @pytest.fixture
@@ -239,6 +248,7 @@ _EMULATION_H = r"""
 #define __host__
 #define __launch_bounds__(x)
 #define __restrict__
+struct float4 { float x, y, z, w; };
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local uint3_ threadIdx, blockIdx;
 inline uint3_ gridDim, blockDim;
@@ -281,7 +291,7 @@ def emulated_library(tmp_path_factory):
     src = (cuda_build.CSRC / "block_ell.cu").read_text()
     src, n = re.subn(r"(\w+)<<<([^,]+),([^,]+),([^,]+),[^>]+>>>\(",
                      r"emu_launch(\1, \2, \3, \4, ", src)
-    assert n == 2
+    assert n == 3
     out = tmp_path_factory.mktemp("emu_block_ell")
     (out / "cuda_runtime.h").write_text(_EMULATION_H)
     (out / "block_ell.cpp").write_text(src)
@@ -294,7 +304,7 @@ def emulated_library(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.block_ell_mv_f32.argtypes = [p] * 4 + [i] * 5 + [p]
-    lib.block_ell_rmv_f32.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.block_ell_rmv_f32.argtypes = [p] * 7 + [i] * 4 + [p]
     return lib
 
 
@@ -320,23 +330,130 @@ def test_cuda_source_matches_plain_versions_in_host_emulation(
     xt, rt = torch.from_numpy(x), torch.from_numpy(r)
 
     out = torch.full((R,), float("nan"))
-    G, F = be.lanes(J, rows=True)
+    G, F = be.lanes(J)
     assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(), xt.data_ptr(),
                                 out.data_ptr(), R, S, J, G, F, None) == 0
     ref = be.block_ell_mv_reference(v, c, xt)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=1e-5 * ref.abs().max().item())
 
-    t = be.transpose_index(c, nb, None if row_slots is None
-                           else torch.from_numpy(row_slots))
-    out = torch.full((nb * J,), float("nan"))
-    G, F = be.lanes(J, rows=False)
-    assert lib.block_ell_rmv_f32(v.data_ptr(), t.order.data_ptr(),
-                                 t.offsets.data_ptr(), rt.data_ptr(),
-                                 out.data_ptr(), nb, S, J, G, F, None) == 0
+    out = _emulated_rmv(lib, v, c, rt, nb, None if row_slots is None
+                        else torch.from_numpy(row_slots))
     ref = be.block_ell_rmv_reference(v, c, rt, nb)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=1e-4 * ref.abs().max().item())
     # bad lane counts are refused, not launched
     assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(), xt.data_ptr(),
                                 out.data_ptr(), R, S, J, 12, 4, None) != 0
+
+
+def _emulated_rmv(lib, v, c, rt, nb, row_slots=None, chunk=be.RMV_CHUNK):
+    """One rmv through the emulated kernels: index, plan and vals_t built by
+    the wrapper's functions."""
+    J = v.shape[-1]
+    t = be.transpose_index(c, nb, row_slots, chunk=chunk)
+    vals_t = be.transpose_vals(v, t)
+    n_chunks = t.chunk_start.numel() - 1
+    partial = torch.full((max(n_chunks, 1) * J,), float("nan"))
+    out = torch.full((nb * J,), float("nan"))
+    _, F = be.rmv_lanes(J)
+    assert lib.block_ell_rmv_f32(
+        vals_t.data_ptr(), t.rows.data_ptr(), t.chunk_start.data_ptr(),
+        t.chunk_off.data_ptr(), rt.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), n_chunks, nb, J, F, None) == 0
+    return out
+
+
+def _skewed(R, S, J, nb, seed):
+    """Random operands in which block 0 (a boundary site) takes half of every
+    row's slots (many times the mean degree) and blocks nb - 3 .. nb - 1 take
+    none."""
+    vals, cols, _, r = _system(R, S, J, nb, seed=seed, distinct=False)
+    cols = cols % (nb - 3)
+    cols[:, : S // 2] = 0
+    return vals, cols, r
+
+
+@pytest.mark.parametrize("R,S,J,nb,chunk", [
+    (60, 8, 16, 24, 16),     # skewed: block 0 cut into 15 chunks of 16
+    (50, 6, 1, 40, 5),       # J = 1, every block cut into chunks of <= 5
+    (40, 4, 20, 12, 7),      # J = 20: 4-float loads, 2 passes of lanes
+    (30, 5, 6, 10, 256),     # J = 6: scalar loads, one chunk per block
+])
+def test_rmv_source_on_skewed_and_empty_blocks_in_host_emulation(
+        emulated_library, R, S, J, nb, chunk):
+    """rmv at 1e-4 of max |plain| on a pattern with one heavy block and
+    blocks no slot addresses (their outputs are exact zeros); a second run
+    gives the same bits."""
+    vals, cols, r = _skewed(R, S, J, nb, seed=R + J)
+    v, c, rt = (torch.from_numpy(a) for a in (vals, cols, r))
+    t = be.transpose_index(c, nb, chunk=chunk)
+    n0 = t.offsets[1].item()                    # block 0's slots
+    assert n0 >= R * (S // 2)
+    assert t.chunk_off[1].item() == -(-n0 // chunk)
+    out = _emulated_rmv(emulated_library, v, c, rt, nb, chunk=chunk)
+    ref = be.block_ell_rmv_reference(v, c, rt, nb)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * ref.abs().max().item())
+    assert (out.reshape(nb, J)[nb - 3:] == 0).all()
+    again = _emulated_rmv(emulated_library, v, c, rt, nb, chunk=chunk)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 256])
+def test_chunk_plan_tiles_each_block_in_even_chunks(chunk):
+    """Every listed slot lies in exactly one chunk, each chunk inside one
+    block, at most `chunk` slots, the block's chunks differing by at most one
+    slot; a block with no slots has no chunk."""
+    _, cols, _ = _skewed(70, 6, 1, 20, seed=11)
+    t = be.transpose_index(torch.from_numpy(cols), 20, chunk=chunk)
+    starts, off = t.chunk_start.numpy(), t.chunk_off.numpy()
+    offsets = t.offsets.numpy()
+    assert t.chunk_start.dtype == torch.int32 and t.chunk_off.dtype == torch.int32
+    assert starts[0] == 0 and starts[-1] == offsets[-1] == 70 * 6
+    assert off[0] == 0 and off[-1] == starts.size - 1
+    sizes = np.diff(starts)
+    assert (sizes >= 1).all() and (sizes <= chunk).all()
+    for b in range(20):
+        n = offsets[b + 1] - offsets[b]
+        mine = sizes[off[b]:off[b + 1]]
+        assert off[b + 1] - off[b] == -(-n // chunk)
+        assert mine.sum() == n
+        if n:
+            assert starts[off[b]] == offsets[b]
+            assert mine.max() - mine.min() <= 1
+    np.testing.assert_array_equal(t.rows.numpy(), t.order.numpy() // 6)
+
+
+def test_transpose_vals_follow_the_index():
+    vals, cols, _, _ = _system(40, 5, 4, 9, seed=12, distinct=False)
+    v = torch.from_numpy(vals)
+    t = be.transpose_index(torch.from_numpy(cols), 9)
+    vt = be.transpose_vals(v, t)
+    assert vt.shape == (200, 4) and vt.is_contiguous()
+    flat = vals.reshape(-1, 4)
+    for i, slot in enumerate(t.order.tolist()):
+        assert np.array_equal(vt[i].numpy(), flat[slot])
+    A = linalg.BlockSparse(v, torch.from_numpy(cols), 9)
+    assert A.vals_t is None                     # built on the card only
+    A.rmv(torch.ones(40))
+    assert A.vals_t is None
+    assert torch.equal(A.transposed_vals(), vt)
+
+
+@pytest.mark.parametrize("J,chunk", [(16, 8), (1, 3), (5, 64)])
+def test_chunked_two_pass_sum_equals_plain_rmv(J, chunk):
+    """The kernel's sum in plain PyTorch: per chunk, vals_t * r[rows] over
+    its slots; per block, its chunks' partials in chunk order."""
+    vals, cols, r = _skewed(90, 6, J, 15, seed=13)
+    v, c, rt = (torch.from_numpy(a) for a in (vals, cols, r))
+    t = be.transpose_index(c, 15, chunk=chunk)
+    prod = be.transpose_vals(v, t) * rt[t.rows.long()][:, None]
+    starts = t.chunk_start.tolist()
+    partial = torch.stack([prod[a:b].sum(0) for a, b in
+                           zip(starts[:-1], starts[1:])])
+    off = t.chunk_off.tolist()
+    out = torch.stack([partial[a:b].sum(0) if b > a else torch.zeros(J)
+                       for a, b in zip(off[:-1], off[1:])]).reshape(-1)
+    torch.testing.assert_close(out, be.block_ell_rmv_reference(v, c, rt, 15),
+                               rtol=1e-5, atol=1e-5)
