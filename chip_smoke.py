@@ -11,7 +11,8 @@ result line):
      pins and at the main path's shapes, with max abs error and median
      times: the fused SIREN forward, and the fused value+gradient+Laplacian
      forward and backward (random cotangents on all three outputs, and the
-     L-only cotangents of the pressure loss); then the pressure phase's
+     L-only cotangents of the pressure loss; two runs of the backward must
+     give the same bits for each); then the pressure phase's
      gradient program at 16,384 points through the kernel pair against the
      plain chain and autograd;
   4. main path: `python -m insr_pde_tpu_torch fluid` (split timestep, SIREN
@@ -30,7 +31,10 @@ result line):
      starting state, at the JAX pin (2x20, 128 + 16 points, 60 iterations),
      at the main path's shape (5,000 + 50 points, one chunk of 250) and with
      a patience that makes the early-stop latch fire inside the chunk; two
-     runs of each case must give the same bits;
+     runs of each case must give the same bits; the main chunk is also
+     timed with the --debug_nan column, which must flag a NaN point's
+     iteration and every iteration of a NaN parameter as the plain loop
+     does;
   7. advection path: `python -m insr_pde_tpu_torch advection` (the flags of
      scripts/advect1D.sh, SIREN 2x20, -sr 5000, T=3) in-process, counters
      set to 0 just before and read just after; checks the launches per
@@ -54,8 +58,10 @@ result line):
  11. block-ELL kernels against their plain versions and the cuSPARSE
      product (`torch.sparse` CSR, the yardstick) at the TPU kernel's scalar
      ELL shape (J = 1, R 35,600, NNZ 768, 192,000 columns, random) and on
-     the channel path's assembled operator (R 243,210, S 12, J 16), with
-     rmv also timed at other chunk sizes of its plan;
+     the channel path's assembled operator (R 243,210, S 12, J 16), two
+     runs of each giving the same bits, with rmv also timed at other chunk
+     sizes of its plan, and mv also with every x gather an L1 hit (what
+     the gathers from L2 cost);
  12. trace: one 200-iteration CGLS chunk of each vortex path's system
      under torch.profiler (outside the paths' counts);
  13. one JSON line of kernel records, the nvidia-smi line, and the last
@@ -164,10 +170,10 @@ VORTEX_ARGS = ["vortex", "--n_rounds", "1"]
 CHANNEL_ARGS = ["vortex", "--preset", "channel", "--picard_iters", "3"]
 INLET_ERROR_BAR = 1e-2
 MAX_U_BAR = 100.0
-# The last lstsq residual of each vortex path with the earlier rmv (one warp
-# per block column, PERF.md section 6): the present rmv sums each column in
-# another order, so the residuals may move in their last digits.
-RESIDUAL_EARLIER_RMV = {"vortex_default": 26.678, "vortex_channel": 1.0496}
+# The last lstsq residual of each vortex path with the earlier block-ELL
+# kernels (PERF.md section 6): the present mv sums each row in another
+# order, so the residuals may move in their last digits.
+RESIDUAL_EARLIER = {"vortex_default": 26.677, "vortex_channel": 1.0415}
 # block-ELL kernel checks: |kernel - plain| <= bar * max |plain| (the sums
 # run in another order; rmv's run over ~300 slots per block)
 BLOCK_ELL_BARS = {"block_ell_mv": 1e-5, "block_ell_rmv": 1e-4}
@@ -418,6 +424,12 @@ def phase_vgl_kernels():
                            gp_ref, *tol),
                 _vgl_check(f"siren_vgl_backward {name} {label} gx", gx,
                            gx_ref, *tol))
+            gp1, gx1 = gp.clone(), gx.clone()
+            launch_backward(packed, widths, x, *cot, scratch, gp, gx)
+            torch.cuda.synchronize()
+            if not (torch.equal(gp, gp1) and torch.equal(gx, gx1)):
+                raise RuntimeError(f"[kernel] siren_vgl_backward {name} "
+                                   f"{label}: two runs differ")
 
         fwd_ms = _median_ms(lambda: launch_forward(packed, widths, x, *outs),
                             reps=15)
@@ -436,8 +448,8 @@ def phase_vgl_kernels():
               f"{fwd_bound:.5f} ms ({fwd_by})", flush=True)
         print(f"[kernel] siren_vgl_backward {name}: N={n} widths={widths} "
               f"blocks={scratch.shape[0]} max_abs_err random "
-              f"{bwd_errs['random']:.3e} L-only {bwd_errs['L-only']:.3e}; "
-              f"kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
+              f"{bwd_errs['random']:.3e} L-only {bwd_errs['L-only']:.3e}, "
+              f"two runs the same bits; kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
               f"{bwd_bound:.5f} ms ({bwd_by})", flush=True)
         if name == VGL_MAIN_SHAPE:
             records["siren_vgl_forward"] = {
@@ -690,10 +702,10 @@ def phase_trace(split_model, merged2_model, adv_model, iters: int = 50,
     bound, so the same fit's wall time without it is printed beside. Not
     part of the paths' launch counts."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from insr_pde_tpu_torch.models.advection import FusedAdvectSolver
     from insr_pde_tpu_torch.models.solver import Solver
+    from insr_pde_tpu_torch.phase_trace import device_summary
 
     def eager(model, loss_fn, sample_fn, n):
         return Solver(loss_fn, sample_fn, lr=model.cfg.lr, max_n_iters=n,
@@ -743,19 +755,21 @@ def phase_trace(split_model, merged2_model, adv_model, iters: int = 50,
             solver.fit(params, aux)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - tic) / iters * 1e3
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3
-        if not dev:
+        events, busy_ms, by_name = device_summary(prof, iters)
+        if not events:
             print(f"[trace] {tag}: not measured (the profiler recorded no "
                   f"device events); {plain_ms:.4f} ms/iter without it")
             continue
         beside = (f" (eager chain: {EAGER_CHAIN_PRESSURE_EVENTS})"
                   if tag == "solve_pressure" else "")
-        print(f"[trace] {tag}: {len(dev) / iters:.2f} device events/iter"
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+        print(f"[trace] {tag}: {events:.2f} device events/iter"
               f"{beside}, device busy {busy_ms:.5f} ms/iter of {wall_ms:.5f} "
               f"ms/iter wall under the profiler ({plain_ms:.5f} without): "
               f"busy share {busy_ms / wall_ms:.3f}, idle "
-              f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+              f"{1 - busy_ms / wall_ms:.3f}; largest: "
+              + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
+                          for k, (_, ms) in top), flush=True)
 
 
 def _advect_ops_per_iter(n, nb, widths):
@@ -838,14 +852,16 @@ def phase_advect_kernel():
         err_p = _vgl_check(f"advect_fit {name} params", got.params,
                            ref.params, 0.0, ADV_PARAM_ATOL)
 
-        def kernel_ms():
+        def kernel_ms(debug_nan=False):
+            out = torch.empty((iters, len(af.history_keys(debug_nan))),
+                              device=dev)
             times = []
             for _ in range(7):
                 s0 = af.init_state(p)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                af.launch(s0, q, x, xb, ADV_WIDTHS, hp, hist)
+                af.launch(s0, q, x, xb, ADV_WIDTHS, hp, out)
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end))
@@ -863,6 +879,7 @@ def phase_advect_kernel():
             return sorted(times)[len(times) // 2]
 
         k_ms, p_ms = kernel_ms(), plain_ms()
+        k_nan_ms = kernel_ms(debug_nan=True)
         bound_ms, bound_by = _advect_bound_ms(n, nb, iters, ADV_WIDTHS)
         print(f"[kernel] advect_fit {name}: N={n} NB={nb} {iters} iterations "
               f"({n_active} active, istate {got.istate.tolist()}) widths "
@@ -872,12 +889,39 @@ def phase_advect_kernel():
               f"{bound_ms:.5f} ms ({bound_by}); per iteration kernel "
               f"{k_ms / iters:.5f} ms, plain {p_ms / iters:.5f} ms, bound "
               f"{bound_ms / iters:.6f} ms; 2 grid barriers per iteration; "
-              f"two runs gave the same bits",
+              f"two runs gave the same bits; with the --debug_nan column "
+              f"{k_nan_ms / iters:.5f} ms per iteration",
               flush=True)
         if name == ADV_MAIN_CASE:
             record = {"max_abs_err": max(err_h, err_p), "ms": k_ms,
                       "plain_ms": p_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by}
+
+    # --debug_nan: a NaN point in iteration 7 and, in a second chunk, a NaN
+    # parameter (every iteration); the kernel's `_nan` column and the other
+    # columns against the plain loop's
+    x, xb = x[:20].contiguous(), xb[:20].contiguous()
+    x[7, 3] = float("nan")
+    bad = p.clone()
+    bad[5] = float("nan")
+    for label, p0, expect in (("nan point", p, [float(i == 7) for i in
+                                                range(20)]),
+                              ("nan param", bad, [1.0] * 20)):
+        got, ref = af.init_state(p0), af.init_state(p0)
+        hist = af.advect_fit(got, q, x, xb, ADV_WIDTHS, hp, debug_nan=True)
+        h_ref = af.advect_fit_reference(ref, q, x, xb, ADV_WIDTHS, hp,
+                                        debug_nan=True)
+        torch.cuda.synchronize()
+        if hist[:, 2].tolist() != expect or h_ref[:, 2].tolist() != expect \
+                or not torch.equal(hist[:, :2], h_ref[:, :2]) \
+                or not torch.allclose(hist[:, 3:], h_ref[:, 3:],
+                                      rtol=ADV_HIST_RTOL, atol=0.0,
+                                      equal_nan=True):
+            raise RuntimeError(f"[kernel] advect_fit --debug_nan {label}: "
+                               f"the history differs from the plain loop's")
+    print("[kernel] advect_fit --debug_nan: the _nan column flags the NaN "
+          "point's iteration and every iteration of a NaN parameter, as the "
+          "plain loop does", flush=True)
     return record
 
 
@@ -998,8 +1042,8 @@ def phase_vortex_default():
     counts, model, out_dir, wall, res = _run_vortex("vortex_default",
                                                     VORTEX_ARGS)
     field = _vortex_report("vortex_default", model, counts, out_dir, wall)
-    print(f"[vortex_default] lstsq residual {res[-1]:.4e} (earlier rmv "
-          f"{RESIDUAL_EARLIER_RMV['vortex_default']}), field {field.shape}, "
+    print(f"[vortex_default] lstsq residual {res[-1]:.4e} (earlier mv "
+          f"{RESIDUAL_EARLIER['vortex_default']}), field {field.shape}, "
           f"relative divergence {relative_divergence(model):.4f} (no bar: "
           f"the velocity formulation cannot represent an incompressible "
           f"field on this scene)", flush=True)
@@ -1016,8 +1060,8 @@ def phase_vortex_channel():
     field = _vortex_report("vortex_channel", model, counts, out_dir, wall)
     inlet = inlet_error(model)
     max_u = float(np.abs(field[..., :2]).max())
-    print(f"[vortex_channel] lstsq residual {res[-1]:.4e} (earlier rmv "
-          f"{RESIDUAL_EARLIER_RMV['vortex_channel']}), inlet error "
+    print(f"[vortex_channel] lstsq residual {res[-1]:.4e} (earlier mv "
+          f"{RESIDUAL_EARLIER['vortex_channel']}), inlet error "
           f"{inlet:.4e} (bar {INLET_ERROR_BAR}),"
           f" max |u| {max_u:.3f} (bar {MAX_U_BAR}), relative divergence "
           f"{relative_divergence(model):.4e}", flush=True)
@@ -1127,7 +1171,7 @@ def _block_ell_case(name, op, x, r):
             raise RuntimeError(f"[kernel] {kname} {name}: max abs err "
                                f"{err:.3e} beyond {bar:.3e} "
                                f"({BLOCK_ELL_BARS[kname]} max |plain|)")
-        if kname == "block_ell_rmv" and not torch.equal(got, kernel()):
+        if not torch.equal(got, kernel()):
             raise RuntimeError(f"[kernel] {kname} {name}: two runs differ")
         ms, plain_ms, lib_ms = (_events_ms(f) for f in (kernel, plain,
                                                         library))
@@ -1138,6 +1182,19 @@ def _block_ell_case(name, op, x, r):
               f"cuSPARSE CSR {lib_ms:.4f} ms (err {lib_err:.3e}), bound "
               f"{bound_ms:.5f} ms ({bound_by}, {bytes_ / 1e6:.1f} MB)",
               flush=True)
+        if kname == "block_ell_mv":
+            # the same values with every slot in block 0: each x gather an
+            # L1 hit, so the time less this one is what the gathers from L2
+            # cost; at J = 1 each gather is a 32-byte L2 sector of its own
+            zero = torch.zeros_like(cols)
+            l1_ms = _events_ms(lambda: be.block_ell_mv(vals, zero, x))
+            sectors = R * S * J * 4 / min(J * 4, 32)
+            print(f"[kernel] block_ell_mv {name}: with every x gather an L1 "
+                  f"hit {l1_ms:.4f} ms ({bound_ms / l1_ms:.0%} of the bound); "
+                  f"the gathers from L2 cost {ms - l1_ms:.4f} ms: "
+                  f"{sectors:.0f} sectors, {sectors * 32 / 1e9:.3f} GB, "
+                  f"{sectors * 32 / ms / 1e9:.2f} TB/s at the kernel's time",
+                  flush=True)
         records[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms}
@@ -1203,9 +1260,9 @@ def phase_vortex_trace(models, iters: int = 200):
     coefficients), under torch.profiler, with the same chunk's wall time
     unprofiled beside."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from insr_pde_tpu_torch.ops.linalg import cgls_sparse_chunked
+    from insr_pde_tpu_torch.phase_trace import device_summary
     for tag, model in models.items():
         A, b = model.assemble(model.params.u)
         precond = model._precondition()
@@ -1229,25 +1286,20 @@ def phase_vortex_trace(models, iters: int = 200):
             chunk()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - tic) / iters * 1e3
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not dev:
+        events, busy_ms, by_name = device_summary(prof, iters)
+        if not events:
             print(f"[trace] {tag} CGLS: not measured (the profiler recorded "
                   f"no device events); {plain_ms:.5f} ms/iter without it")
             continue
-        busy_ms = sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3
-        by_name = {}
-        for e in dev:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
         print(f"[trace] {tag} CGLS chunk ({info['niter']} iterations, "
-              f"precondition {precond}): {len(dev) / iters:.2f} device "
+              f"precondition {precond}): {events:.2f} device "
               f"events/iter, device busy {busy_ms:.5f} ms/iter of "
               f"{wall_ms:.5f} ms/iter wall under the profiler "
               f"({plain_ms:.5f} without): busy share "
               f"{busy_ms / plain_ms:.3f} of the unprofiled wall; largest: "
-              + "; ".join(f"{k[:40]} {v / iters / 1e3:.5f} ms/iter"
-                          for k, v in top), flush=True)
+              + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
+                          for k, (_, ms) in top), flush=True)
 
 
 def _timed(name, fn, *args):

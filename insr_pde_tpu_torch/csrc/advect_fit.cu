@@ -22,6 +22,10 @@
 //     gW = h^T gz + dh^T gdz,  gb = sum_rows gz,
 //     gh = gz W^T,  gdh = gdz W^T,
 //     gz_prev = gh w cos(w z) - gdh w^2 sin(w z) dz,  gdz_prev = gdh w cos(w z).
+// With `nan_col` the history gets one more column per iteration, whether
+// the summed gradient holds a NaN (the JAX Solver's --debug_nan flag): the
+// finite check of the totals already looks at every element, so the flag
+// costs one block vote in block 0.
 //
 // What bounds it on this card: operations, barely. At the paper's 2x20 net
 // (840 multiply-adds per point per evaluation) and 5,050 points an
@@ -393,7 +397,7 @@ advect_fit_kernel(float* __restrict__ params_g, const float* __restrict__ prev_g
                   const float* __restrict__ x_g, const float* __restrict__ xb_g,
                   float* __restrict__ hist, float* __restrict__ partial,
                   int n_iters, FitDims d, FitHyper hp, int patience,
-                  int early_stop) {
+                  int early_stop, int nan_col) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const int P = d.n_params;
@@ -474,24 +478,31 @@ advect_fit_kernel(float* __restrict__ params_g, const float* __restrict__ prev_g
         grid.sync();
         // phase: barrier
 
-        int ok = 1;
+        int ok = 1, nan = 0;
 #pragma unroll 8
         for (int i = tid; i < n_el; i += nt) {
             const float s = __ldcg(total + i);
             g_s[i] = s;
-            if (i < P && !isfinite(s)) ok = 0;
+            if (i < P && !isfinite(s)) {
+                ok = 0;
+                if (isnan(s)) nan = 1;
+            }
         }
         const bool grads_ok = __syncthreads_and(ok) != 0;
+        // block 0 writes the history: only it votes on the NaN flag
+        const bool grad_nan = nan_col && blockIdx.x == 0
+                              && __syncthreads_or(nan) != 0;
         // phase: sum
         const float main = g_s[P] / static_cast<float>(d.n);
         const float bc = g_s[P + 1] / static_cast<float>(d.nb);
         const bool active = !stopped;
         if (blockIdx.x == 0 && tid == 0) {
-            float* h = hist + 4LL * it;
+            float* h = hist + (4LL + nan_col) * it;
             h[0] = active ? 1.0f : 0.0f;
             h[1] = hp.lr * scale;
-            h[2] = bc;
-            h[3] = main;
+            if (nan_col) h[2] = grad_nan ? 1.0f : 0.0f;
+            h[2 + nan_col] = bc;
+            h[3 + nan_col] = main;
         }
         if (active && isfinite(main) && grads_ok) {
             const int count_n = count + 1;
@@ -547,7 +558,7 @@ advect_fit_kernel(float* __restrict__ params_g, const float* __restrict__ prev_g
 
 using KernelFn = void (*)(float*, const float*, float*, float*, int*, float*,
                           const float*, const float*, float*, float*, int,
-                          FitDims, FitHyper, int, int);
+                          FitDims, FitHyper, int, int, int);
 
 // The instantiation for outputs per team member ceil(hidden / TEAM), rounded
 // up to one that is built; null beyond MAX_HIDDEN.
@@ -652,7 +663,8 @@ extern "C" int advect_fit_grid(int n_rows, int n_layers, const int* widths) {
 // mu, nu (n_params), istate int32 [count, bad, stopped] and fstate f32
 // [best, scale] are read and written back; prev (n_params) is read;
 // x (n_iters, n) and xb (n_iters, nb) are the points; hist (n_iters, 4)
-// gets [active, lr, bc, main] per iteration; partial is scratch of
+// gets [active, lr, bc, main] per iteration, or with nan_col = 1
+// (n_iters, 5) [active, lr, nan, bc, main]; partial is scratch of
 // 2 x advect_fit_grid(...) x (n_params + 2) floats. `hyper` holds dt, vel,
 // lr, plateau factor, 1 - threshold, min scale, stop scale, b1, 1 - b1, b2,
 // 1 - b2, eps, omega. Allocates nothing; returns the cudaError_t (0 on
@@ -663,9 +675,10 @@ extern "C" int advect_fit_f32(float* params, const float* prev, float* mu,
                               float* partial, int n_iters, int n, int nb,
                               int n_layers, const int* widths,
                               const float* hyper, int patience,
-                              int early_stop, void* stream) {
+                              int early_stop, int nan_col, void* stream) {
     FitDims d;
-    if (make_dims(n, nb, n_layers, widths, d) == 0 || n_iters < 0)
+    if (make_dims(n, nb, n_layers, widths, d) == 0 || n_iters < 0
+        || (nan_col != 0 && nan_col != 1))
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_iters == 0) return 0;
     FitHyper hp;
@@ -691,7 +704,7 @@ extern "C" int advect_fit_f32(float* params, const float* prev, float* mu,
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, params, prev, mu, nu, istate, fstate,
                              x, xb, hist, partial, n_iters, d, hp, patience,
-                             early_stop);
+                             early_stop, nan_col);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -22,14 +22,37 @@
 // byte. The design keeps every read of vals coalesced and every other
 // access in L2:
 //
-// * mv: a group of G lanes per row (G a power of two dividing 32). Lane l
-//   takes feature j = l % F (F lanes, a power of two <= J) and slot s = l / F
-//   (P = G / F slot lanes), then strides over the slots by P and over the
-//   features by F. At J = 16, G = F = 16: two rows per warp, each lane one
-//   feature, looping over the S slots; a row's S*J floats are contiguous,
-//   so each step of a group reads 64 contiguous bytes of vals and 64 of x.
-//   At J = 1 (the TPU kernel's scalar form) F = 1 and the 32 lanes take
-//   slots. The group's sum is a butterfly of shuffles in a fixed order.
+// * mv: a group of G lanes per row (G a power of two dividing 32, 32 / G
+//   rows per warp). The first design (one 4-byte load of vals per lane and
+//   slot, each slot a dependent chain cols[s] -> x) kept ~128 bytes of vals
+//   in flight per warp, 45% of the memory rate. Now a row's S*J floats (one
+//   contiguous run, 768 bytes at the channel preset) are cut into vectors
+//   of V floats, and lane l of the group takes the vectors l, l + G, ...,
+//   U = 4 of them per step, issuing their value loads, their column loads
+//   and then their x loads before any product:
+//   - J % 4 == 0 (V = 4): a vector is 16 bytes of one slot, its x the 16
+//     bytes at cols[s]*J + 4 jv (one float4 gather). At J = 16, S = 12 a
+//     row is 48 vectors: G = 16 lanes, two rows per warp, a whole row's
+//     768 bytes of vals in flight per half-warp.
+//   - J = 1 and S % 4 == 0 (V = 4, the TPU kernel's scalar ELL): a vector
+//     is 4 slots, their ids one int4 load, their x four scalar gathers; G =
+//     32, a warp per row.
+//   - otherwise (V = 1): one float per lane and step.
+//   x stays in L2 (512 KB at the channel preset) and is gathered from
+//   there (chip_smoke.py times mv beside a run whose gathers all hit L1).
+//   The group's sum is a butterfly of shuffles in a fixed order.
+//   At J % 4 == 0 and S % 4 == 0 the values and slot ids do not come from
+//   the lanes' loads but from a ring (block_ell_mv_ring_kernel): a tile of
+//   THREADS / G rows is one contiguous run of vals and one of cols, so two
+//   bulk copies (cp.async.bulk, the TMA's 1D form) bring it into a stage
+//   of shared memory, counted by the stage's mbarrier. A block keeps
+//   RING_STAGES tiles in flight (4 x 13 KB at the channel preset, four
+//   blocks an SM) on a persistent grid, and its lanes read each tile from
+//   shared memory as they read it from device memory before. The register
+//   version streamed 70% of the memory rate at the channel preset, the
+//   ring 79% (PERF.md). At J = 1 it was slower (its rows' 768 scattered
+//   gathers, not the stream, set that time), so J = 1 keeps the register
+//   version.
 // * rmv: a deterministic pull over a CSR transpose of the sparsity pattern
 //   (the flat slots r*S + s sorted stably by block id, and where each
 //   block's slots begin), built once per pattern by the wrapper. The index
@@ -66,32 +89,245 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int RING_STAGES = 4;
+constexpr int SMEM_LIMIT = 232448;    // 227 KB of dynamic shared memory per block
 
 inline bool pow2_divides(int a, int b) {   // a a power of two dividing b
     return a > 0 && (a & (a - 1)) == 0 && b % a == 0;
 }
 
+// The mv vector modes (see the note at the top).
+enum MvMode { MV_SLOT_VEC = 0, MV_SLOTS4 = 1, MV_SCALAR = 2 };
+
+// One group of G lanes per row; lane `lane` takes the row's vectors lane,
+// lane + G, ..., U per step, in that order, into one sum.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 block_ell_mv_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
                     const float* __restrict__ x, float* __restrict__ out,
-                    int R, int S, int J, int G, int F) {
+                    int R, int S, int J, int G) {
+    constexpr int U = 4;
+    constexpr int V = MODE == MV_SCALAR ? 1 : 4;
     const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
     const int lane = threadIdx.x % G;
-    const int jl = lane % F, sl = lane / F, P = G / F;
+    const int n_vec = S * J / V;
+    const int jv_per_slot = J / V;          // MV_SLOT_VEC: vectors per slot
+    // its log2 where it is a power of two (J = 16: 2), else -1
+    const int jv_shift = (jv_per_slot & (jv_per_slot - 1)) == 0 ? __ffs(jv_per_slot) - 1 : -1;
     float acc = 0.f;
     if (r < R) {
         const float* v = vals + r * S * J;
         const int* c = cols + r * S;
-        for (int s = sl; s < S; s += P) {
-            const float* xb = x + (long long)__ldg(c + s) * J;
-            const float* vs = v + (long long)s * J;
-            for (int j = jl; j < J; j += F)
-                acc = fmaf(__ldg(vs + j), __ldg(xb + j), acc);
+        for (int e0 = lane; e0 < n_vec; e0 += U * G) {
+            float4 vv[U];
+            float4 xv[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int e = e0 + u * G;
+                vv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (e < n_vec) {
+                    if constexpr (V == 4)
+                        vv[u] = __ldg(reinterpret_cast<const float4*>(v) + e);
+                    else
+                        vv[u].x = __ldg(v + e);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int e = e0 + u * G;
+                xv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (e < n_vec) {
+                    if constexpr (MODE == MV_SLOT_VEC) {
+                        const int s = jv_shift >= 0 ? e >> jv_shift : e / jv_per_slot;
+                        const int jv = e - s * jv_per_slot;
+                        const long long b = __ldg(c + s);
+                        xv[u] = __ldg(reinterpret_cast<const float4*>(x + b * J) + jv);
+                    } else if constexpr (MODE == MV_SLOTS4) {
+                        const int4 b = __ldg(reinterpret_cast<const int4*>(c) + e);
+                        xv[u] = make_float4(__ldg(x + b.x), __ldg(x + b.y),
+                                            __ldg(x + b.z), __ldg(x + b.w));
+                    } else {
+                        const int s = e / J;
+                        const long long b = __ldg(c + s);
+                        xv[u].x = __ldg(x + b * J + (e - s * J));
+                    }
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                acc = fmaf(vv[u].x, xv[u].x, acc);
+                if constexpr (V == 4) {
+                    acc = fmaf(vv[u].y, xv[u].y, acc);
+                    acc = fmaf(vv[u].z, xv[u].z, acc);
+                    acc = fmaf(vv[u].w, xv[u].w, acc);
+                }
+            }
         }
     }
     for (int off = G / 2; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (r < R && lane == 0) out[r] = acc;
+}
+
+// The mv ring's TMA primitives: an mbarrier per stage completes a phase on
+// one arrival and the bytes of the stage's bulk copies. The tests' host
+// emulation supplies its own versions of the functions between the marks.
+// ring primitives {
+__device__ inline unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void ring_init(unsigned long long* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The arrival, announcing `bytes` of copies to come.
+__device__ inline void ring_expect(unsigned long long* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// to shared memory, counted against `bar`.
+__device__ inline void ring_copy(void* dst, const void* src, unsigned bytes,
+                                 unsigned long long* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1], %2, [%3];"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+                 : "memory");
+}
+
+// This thread's accesses of shared memory before the copies it issues next.
+__device__ inline void ring_fence() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ inline void ring_wait(unsigned long long* bar, unsigned parity) {
+    unsigned done = 0;
+    while (!done)
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                     "selp.u32 %0, 1, 0, p;\n\t}"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// } ring primitives
+
+// Floats of one ring stage: a tile's vals, then its cols padded to 16 bytes.
+__host__ __device__ inline long long ring_stage_floats(int G, int S, int J) {
+    const long long tr = THREADS / G;
+    return tr * S * J + ((tr * S + 3) & ~3LL);
+}
+
+// mv over the ring: the stages, then one mbarrier per stage, in dynamic
+// shared memory. Block b takes the tiles b, b + gridDim.x, ...; thread 0
+// keeps the next RING_STAGES of them in flight and refills a stage once
+// every thread is done with it. A row's lanes, steps and sum are those of
+// block_ell_mv_kernel<MV_SLOT_VEC>, over the stage instead of device memory.
+__global__ void __launch_bounds__(THREADS)
+block_ell_mv_ring_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                         const float* __restrict__ x, float* __restrict__ out,
+                         int R, int S, int J, int G, int n_tiles) {
+    constexpr int U = 4;
+    extern __shared__ float4 smem4[];
+    float* ring = reinterpret_cast<float*>(smem4);
+    const int tr = THREADS / G;
+    const int row_f = S * J;
+    const int vals_f = tr * row_f;
+    const long long stage_f = ring_stage_floats(G, S, J);
+    unsigned long long* bars =
+        reinterpret_cast<unsigned long long*>(ring + RING_STAGES * stage_f);
+    if (threadIdx.x == 0)
+        for (int s = 0; s < RING_STAGES; ++s) ring_init(&bars[s]);
+    __syncthreads();
+    const int tiles = (int)blockIdx.x < n_tiles
+                      ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+    auto issue = [&](int k) {             // the block's k-th tile into stage k % RING_STAGES
+        const long long r0 = ((long long)blockIdx.x + (long long)k * gridDim.x) * tr;
+        const int rows = R - r0 < tr ? (int)(R - r0) : tr;
+        unsigned long long* bar = &bars[k % RING_STAGES];
+        float* dst = ring + (k % RING_STAGES) * stage_f;
+        ring_fence();
+        ring_expect(bar, (unsigned)rows * (row_f + S) * 4u);
+        ring_copy(dst, vals + r0 * row_f, (unsigned)rows * row_f * 4u, bar);
+        ring_copy(dst + vals_f, cols + r0 * S, (unsigned)rows * S * 4u, bar);
+    };
+    if (threadIdx.x == 0)
+        for (int k = 0; k < tiles && k < RING_STAGES; ++k) issue(k);
+    const int lane = threadIdx.x % G;
+    const int lr = threadIdx.x / G;       // the thread's row in the tile
+    const int n_vec = row_f / 4;
+    const int jv_per_slot = J / 4;
+    const int jv_shift = (jv_per_slot & (jv_per_slot - 1)) == 0 ? __ffs(jv_per_slot) - 1 : -1;
+    for (int k = 0; k < tiles; ++k) {
+        const int st = k % RING_STAGES;
+        ring_wait(&bars[st], (k / RING_STAGES) & 1);
+        const long long r = ((long long)blockIdx.x + (long long)k * gridDim.x) * tr + lr;
+        const float4* v = reinterpret_cast<const float4*>(ring + st * stage_f + lr * row_f);
+        const int* c = reinterpret_cast<const int*>(ring + st * stage_f + vals_f) + lr * S;
+        float acc = 0.f;
+        if (r < R) {
+            for (int e0 = lane; e0 < n_vec; e0 += U * G) {
+                float4 vv[U], xv[U];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int e = e0 + u * G;
+                    vv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+                    xv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (e < n_vec) {
+                        const int s = jv_shift >= 0 ? e >> jv_shift : e / jv_per_slot;
+                        const long long b = c[s];
+                        vv[u] = v[e];
+                        xv[u] = __ldg(reinterpret_cast<const float4*>(x + b * J)
+                                      + (e - s * jv_per_slot));
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    acc = fmaf(vv[u].x, xv[u].x, acc);
+                    acc = fmaf(vv[u].y, xv[u].y, acc);
+                    acc = fmaf(vv[u].z, xv[u].z, acc);
+                    acc = fmaf(vv[u].w, xv[u].w, acc);
+                }
+            }
+        }
+        for (int off = G / 2; off > 0; off >>= 1)
+            acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (r < R && lane == 0) out[r] = acc;
+        __syncthreads();                  // every thread is done with stage st
+        if (threadIdx.x == 0 && k + RING_STAGES < tiles) issue(k + RING_STAGES);
+    }
+}
+
+// The ring's launch: the dynamic shared-memory limit raised once per
+// device, then a persistent grid of as many blocks as the SMs hold.
+cudaError_t launch_mv_ring(const float* vals, const int* cols, const float* x,
+                           float* out, int R, int S, int J, int G, size_t smem,
+                           cudaStream_t st) {
+    constexpr int MAX_DEVICES = 64;
+    static bool raised[MAX_DEVICES] = {};
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && (dev >= MAX_DEVICES || !raised[dev])) {
+        err = cudaFuncSetAttribute(block_ell_mv_ring_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+        if (err == cudaSuccess && dev < MAX_DEVICES) raised[dev] = true;
+    }
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_ell_mv_ring_kernel,
+                                                            THREADS, smem);
+    if (err != cudaSuccess) return err;
+    const int tr = THREADS / G;
+    const long long n_tiles = ((long long)R + tr - 1) / tr;
+    const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    const unsigned grid = (unsigned)(n_tiles < most ? n_tiles : most);
+    block_ell_mv_ring_kernel<<<grid, THREADS, smem, st>>>(vals, cols, x, out, R, S, J, G,
+                                                          (int)n_tiles);
+    return cudaGetLastError();
 }
 
 // rmv, pass 1: one warp per chunk, a run of at most C consecutive slots of
@@ -192,17 +428,33 @@ unsigned grid_for(long long groups, int G) {
 
 }  // namespace
 
-// A x for the block-ELL (vals, cols): out (R,). G lanes per row, F feature
-// lanes (powers of two, F | G | 32). Returns a CUDA error code (0 = launched).
+// A x for the block-ELL (vals, cols): out (R,). G lanes per row (a power
+// of two dividing 32) and floats per vector V: 4 when J % 4 == 0 or (J == 1
+// and S % 4 == 0), with vals, cols and x 16-byte aligned, else 1. Through
+// the ring where V = 4, J % 4 == 0, S % 4 == 0 and its stages fit. Returns
+// a CUDA error code (0 = launched).
 extern "C" int block_ell_mv_f32(const float* vals, const int* cols, const float* x,
-                                float* out, int R, int S, int J, int G, int F,
+                                float* out, int R, int S, int J, int G, int V,
                                 void* stream) {
-    if (R < 0 || S < 1 || J < 1 || !pow2_divides(G, 32) || !pow2_divides(F, G))
+    if (R < 0 || S < 1 || J < 1 || !pow2_divides(G, 32) || (V != 1 && V != 4))
+        return (int)cudaErrorInvalidValue;
+    const bool aligned = ((reinterpret_cast<unsigned long long>(vals)
+                           | reinterpret_cast<unsigned long long>(cols)
+                           | reinterpret_cast<unsigned long long>(x)) & 15) == 0;
+    const int mode = V == 1 ? MV_SCALAR : J % 4 == 0 ? MV_SLOT_VEC : MV_SLOTS4;
+    if (V == 4 && (!aligned || (mode == MV_SLOTS4 && (J != 1 || S % 4 != 0))))
         return (int)cudaErrorInvalidValue;
     if (R == 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto mv = mode == MV_SLOT_VEC ? block_ell_mv_kernel<MV_SLOT_VEC>
+            : mode == MV_SLOTS4 ? block_ell_mv_kernel<MV_SLOTS4>
+                                : block_ell_mv_kernel<MV_SCALAR>;
+    const size_t ring_smem = (RING_STAGES * ring_stage_floats(G, S, J)
+                              + 2 * RING_STAGES) * sizeof(float);
+    if (mode == MV_SLOT_VEC && S % 4 == 0 && ring_smem <= (size_t)SMEM_LIMIT)
+        return (int)launch_mv_ring(vals, cols, x, out, R, S, J, G, ring_smem, st);
     const unsigned grid = grid_for(R, G);
-    block_ell_mv_kernel<<<grid, THREADS, 0, st>>>(vals, cols, x, out, R, S, J, G, F);
+    mv<<<grid, THREADS, 0, st>>>(vals, cols, x, out, R, S, J, G);
     return (int)cudaGetLastError();
 }
 

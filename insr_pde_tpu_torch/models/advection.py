@@ -8,10 +8,12 @@ previous field, with a zero Dirichlet penalty on ~1% of the points.
 Each loss is a pure function of (params, points, aux), the points drawn from
 the model's generator by a separate step, so that the tests can hand both
 packages the same points. `initialize` fits the initial condition through
-the generic `Solver`. `step`'s advect phase runs through
-`ops/advect_fit.advect_fit`: on the card one launch of the hand-written
-kernel per chunk of Adam iterations, on the CPU its plain version; it
-computes the same loss as `_advect_loss`.
+the generic `Solver`. For the sine SIREN, `step`'s advect phase runs
+through `ops/advect_fit.advect_fit`: on the card one launch of the
+hand-written kernel per chunk of Adam iterations, on the CPU its plain
+version; it computes the same loss as `_advect_loss`. Any other network
+(`--nonlinearity relu|elu`) fits `_advect_loss` through the generic
+`Solver`, as the JAX model fits every network.
 """
 
 from __future__ import annotations
@@ -39,13 +41,12 @@ class FusedAdvectSolver(Solver):
     """A `Solver` of the advect phase whose every chunk is one
     `advect_fit` call on point tables from `table_fn` (the chunk loop,
     history, early stop and callback are `Solver.fit`'s). aux["prev"] is
-    the frozen previous field."""
+    the frozen previous field. With `debug_nan` each chunk also returns
+    the per-iteration `_nan` flag (any NaN in the gradient), and `fit`
+    warns once per chunk that has one, as for any Solver."""
 
     def __init__(self, table_fn: TableFn, widths: List[int], *, dt: float,
                  vel: float, **options):
-        # the kernel reports no per-iteration NaN flag; a non-finite
-        # iteration is skipped all the same (and shows in the history)
-        options.pop("debug_nan", None)
         super().__init__(None, None, **options)
         self.table_fn = table_fn
         self.widths = list(widths)
@@ -66,11 +67,12 @@ class FusedAdvectSolver(Solver):
             torch.stack([state.opt.count, pl.bad,
                          pl.stopped.to(torch.int32)]).to(torch.int32),
             torch.stack([pl.best, pl.scale]).to(torch.float32))
-        hist = af.advect_fit(fit, prev, x, xb, self.widths, self.hyper)
+        hist = af.advect_fit(fit, prev, x, xb, self.widths, self.hyper,
+                             debug_nan=self.debug_nan)
         i, f = fit.istate, fit.fstate
         state = SolveState(fit.params, AdamState(fit.mu, fit.nu, i[0]),
                            PlateauState(f[0], i[1], f[1], i[2] != 0))
-        return state, ["_active", "_lr", "bc", "main"], hist
+        return state, af.history_keys(self.debug_nan), hist
 
 
 class Advection1DModel(BaseModel):
@@ -82,19 +84,18 @@ class Advection1DModel(BaseModel):
         self._create_field("field_prev", 1, 1)
         if not cfg.init_cond:
             raise ValueError("advection requires --init_cond (e.g. example1)")
-        if not self.net._is_siren:
-            raise ValueError(
-                "advection's advect phase runs the fused SIREN fit "
-                "(ops/advect_fit.py): --network siren with the sine "
-                "nonlinearity only")
         self.init_cond_func = get_examples(cfg.init_cond)
         # one device: the whole collocation budget per iteration
         self.n_samples = max(1, self.sample_resolution)
         self.n_boundary = max(self.sample_resolution // 100, 10)
-        widths = [1] + [w.shape[1] for w, _ in self.fields["field"]]
-        self.advect_solver = FusedAdvectSolver(
-            self._advect_tables, widths, dt=self.dt, vel=self.vel,
-            **self._solver_options())
+        # the advect phase's solver: the fused fit for the sine SIREN, else
+        # None (`_run_phase` builds the generic Solver on `_advect_loss`)
+        self.advect_solver = None
+        if self.net._is_siren:
+            widths = [1] + [w.shape[1] for w, _ in self.fields["field"]]
+            self.advect_solver = FusedAdvectSolver(
+                self._advect_tables, widths, dt=self.dt, vel=self.vel,
+                **self._solver_options())
 
     # ---- sampling steps (model generator) ----
     def _init_points(self):

@@ -20,7 +20,9 @@ The state lives in an `AdvectFitState` of tensors that the call updates in
 place: the flat params [W_0, b_0, W_1, b_1, ...] (W as (in, out)), Adam's mu
 and nu, `istate` int32 [count, bad, stopped] and `fstate` f32 [best, scale].
 The call returns the (n, 4) history [_active, _lr, bc, main] per iteration,
-the keys and order of `Solver._run_chunk`.
+the keys and order of `Solver._run_chunk`; with `debug_nan` it is (n, 5),
+[_active, _lr, _nan, bc, main], `_nan` being 1 where the iteration's
+gradient holds a NaN (the JAX Solver's `any(isnan(grad))`).
 
 On a CUDA tensor `advect_fit` launches `csrc/advect_fit.cu` (built at first
 use); on a CPU tensor it runs `advect_fit_reference`, the plain eager loop
@@ -75,6 +77,12 @@ def init_state(flat: torch.Tensor) -> AdvectFitState:
         flat.detach().clone(), torch.zeros_like(flat), torch.zeros_like(flat),
         torch.zeros(3, dtype=torch.int32, device=dev),
         torch.tensor([float("inf"), 1.0], dtype=torch.float32, device=dev))
+
+
+def history_keys(debug_nan: bool = False) -> List[str]:
+    """The history's columns, in `Solver._run_chunk`'s (sorted) order."""
+    return ["_active", "_lr"] + (["_nan"] if debug_nan else []) + ["bc",
+                                                                   "main"]
 
 
 def n_params(widths: Sequence[int]) -> int:
@@ -172,11 +180,11 @@ def _u_and_dudx(params, x: torch.Tensor):
 
 def advect_fit_reference(state: AdvectFitState, prev: torch.Tensor,
                          x: torch.Tensor, xb: torch.Tensor,
-                         widths: Sequence[int],
-                         hp: AdvectFitHyper) -> torch.Tensor:
+                         widths: Sequence[int], hp: AdvectFitHyper,
+                         debug_nan: bool = False) -> torch.Tensor:
     """The plain version: one eager iteration after another, u and du/dx
     through the batched forward chain, the gradient by autograd. Updates
-    `state` in place and returns the (n, 4) history."""
+    `state` in place and returns the history (columns `history_keys`)."""
     params, mu, nu = state.params, state.mu, state.nu
     count, bad = state.istate[0], state.istate[1]
     stopped = state.istate[2] != 0
@@ -216,8 +224,9 @@ def advect_fit_reference(state: AdvectFitState, prev: torch.Tensor,
 
         active = ~stopped
         write = active & torch.isfinite(main) & torch.isfinite(g).all()
+        nan = [torch.isnan(g).any().to(torch.float32)] if debug_nan else []
         rows.append(torch.stack([active.to(torch.float32), hp.lr * scale,
-                                 bc, main]))
+                                 *nan, bc, main]))
         params = torch.where(write, new, params.detach())
         mu = torch.where(write, mu_n, mu)
         nu = torch.where(write, nu_n, nu)
@@ -233,7 +242,7 @@ def advect_fit_reference(state: AdvectFitState, prev: torch.Tensor,
         state.istate.copy_(torch.stack([count, bad, stopped.to(torch.int32)]))
         state.fstate.copy_(torch.stack([best, scale]))
     if not rows:
-        return x.new_zeros((0, 4))
+        return x.new_zeros((0, len(history_keys(debug_nan))))
     return torch.stack(rows)
 
 
@@ -250,7 +259,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.advect_fit_grid.argtypes = [i, i, widths]
         lib.advect_fit_f32.argtypes = [p] * 10 + [i, i, i, i, widths,
                                                   ctypes.POINTER(ctypes.c_float),
-                                                  i, i, p]
+                                                  i, i, i, p]
         for fn in (lib.advect_fit_grid, lib.advect_fit_f32):
             fn.restype = ctypes.c_int
     return lib
@@ -269,8 +278,9 @@ def launch(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
            xb: torch.Tensor, widths: List[int], hp: AdvectFitHyper,
            hist: torch.Tensor) -> None:
     """One cooperative launch of the kernel on the current stream of the
-    state's device. Shapes are checked by `advect_fit`; this only raises on a
-    refused or failed launch."""
+    state's device, into `hist` (n, 4), or (n, 5) with the `_nan` column.
+    Shapes are checked by `advect_fit`; this only raises on a refused or
+    failed launch."""
     lib = _library()
     c_widths = (ctypes.c_int * len(widths))(*widths)
     n_layers = len(widths) - 1
@@ -290,7 +300,8 @@ def launch(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
             state.fstate.data_ptr(), x.data_ptr(), xb.data_ptr(),
             hist.data_ptr(), partial.data_ptr(), x.shape[0], x.shape[1],
             xb.shape[1], n_layers, c_widths, _hyper_floats(hp),
-            int(hp.plateau_patience), int(hp.early_stop), stream)
+            int(hp.plateau_patience), int(hp.early_stop),
+            int(hist.shape[1] == len(history_keys(True))), stream)
     if err != 0:
         raise RuntimeError(f"advect_fit kernel launch failed with CUDA error "
                            f"{err}")
@@ -299,16 +310,18 @@ def launch(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
 
 def advect_fit(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
                xb: torch.Tensor, widths: Sequence[int],
-               hp: AdvectFitHyper) -> torch.Tensor:
+               hp: AdvectFitHyper, debug_nan: bool = False) -> torch.Tensor:
     """x.shape[0] Adam iterations of the advect phase: the CUDA kernel on
     CUDA tensors (one launch), the plain version on CPU tensors. Updates
-    `state` in place; returns the (n, 4) history [_active, _lr, bc, main]."""
+    `state` in place; returns the history [_active, _lr, bc, main] per
+    iteration, with the `_nan` flag before bc under `debug_nan`."""
     widths = list(widths)
     _check(state, prev, x, xb, widths)
     if not state.params.is_cuda:
-        return advect_fit_reference(state, prev, x, xb, widths, hp)
-    hist = torch.empty((x.shape[0], 4), dtype=torch.float32,
-                       device=x.device)
+        return advect_fit_reference(state, prev, x, xb, widths, hp,
+                                    debug_nan)
+    hist = torch.empty((x.shape[0], len(history_keys(debug_nan))),
+                       dtype=torch.float32, device=x.device)
     if x.shape[0] > 0:
         launch(state, prev, x, xb, widths, hp, hist)
     return hist

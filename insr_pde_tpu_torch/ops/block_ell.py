@@ -126,16 +126,23 @@ def block_ell_rmv_reference(vals: torch.Tensor, cols: torch.Tensor,
     return out.reshape(-1)
 
 
-def lanes(J: int) -> tuple[int, int]:
-    """mv's (G, F): lanes per row and feature lanes. F is the largest power
-    of two <= min(J, 32). A row takes G = F lanes from F = 16 up (two rows
-    per warp at J = 16), a whole warp below that (the slots share it)."""
-    F = 1
-    while F * 2 <= min(J, 32):
-        F *= 2
-    if F >= 16:
-        return F, F
-    return 32, F
+# mv: vectors per lane and step (csrc/block_ell.cu block_ell_mv_kernel's U)
+MV_UNROLL = 4
+
+
+def lanes(S: int, J: int, aligned: bool = True) -> tuple[int, int]:
+    """mv's (G, V): lanes per row and floats per vector. V = 4 (16-byte
+    loads) when J % 4 == 0, or J == 1 and S % 4 == 0, and the operands are
+    16-byte aligned; else 1. A row's S*J/V vectors are spread over G lanes,
+    the least power of two (at most 32) that leaves each lane at most one
+    step of MV_UNROLL vectors: 16 at the channel preset (two rows per
+    warp), 32 for the TPU kernel's 768-slot scalar rows."""
+    V = 4 if aligned and (J % 4 == 0 or (J == 1 and S % 4 == 0)) else 1
+    per_lane = -(-(S * J // V) // MV_UNROLL)
+    G = 1
+    while G < min(per_lane, 32):
+        G *= 2
+    return G, V
 
 
 def rmv_lanes(J: int) -> tuple[int, int]:
@@ -172,7 +179,12 @@ def _check(vals: torch.Tensor, cols: torch.Tensor, vec: torch.Tensor,
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("block_ell")
+    return bind(cuda_build.load("block_ell"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from
+    `csrc/block_ell.cu` (or a copy of it)."""
     if lib.block_ell_mv_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.block_ell_mv_f32.argtypes = [p] * 4 + [i] * 5 + [p]
@@ -188,11 +200,12 @@ def launch_mv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     Shapes are checked by `block_ell_mv`; this raises on a failed launch."""
     global mv_launches
     R, S, J = vals.shape
-    G, F = lanes(J)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (vals, cols, x))
+    G, V = lanes(S, J, aligned)
     with torch.cuda.device(vals.device):
         err = _library().block_ell_mv_f32(
             vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
-            R, S, J, G, F, torch.cuda.current_stream().cuda_stream)
+            R, S, J, G, V, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_ell_mv kernel launch failed with CUDA "
                            f"error {err}")

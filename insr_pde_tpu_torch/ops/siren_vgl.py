@@ -101,7 +101,12 @@ def _check(params: Params, coords: torch.Tensor) -> None:
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("siren_vgl")
+    return bind(cuda_build.load("siren_vgl"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from
+    `csrc/siren_vgl.cu` (or a copy of it)."""
     if lib.siren_vgl_forward_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         widths = ctypes.POINTER(ctypes.c_int)

@@ -10,7 +10,10 @@
 * The plain version against the port's generic `Solver` with the
   advection model's `_advect_loss` on the same points, with the early-stop
   latch firing inside the chunk; a NaN in one iteration's points is skipped
-  as the Solver skips it; two chunks that carry the state equal one.
+  as the Solver skips it; two chunks that carry the state equal one. With
+  `debug_nan` the history gains the `_nan` column (any NaN in the
+  gradient), set exactly on the iterations a NaN point or parameter
+  reaches, and the other columns stay as they are.
 * The CUDA kernel runs only on the card (a `cuda`-marked case skips here).
   Its source is also compiled with the host C++ compiler against a small
   emulation of the CUDA runtime in which every block's threads run at once
@@ -18,7 +21,8 @@
   __syncwarp and for the shuffles, which exchange through a per-warp
   buffer) and a grid barrier across all blocks, and held against the plain
   version: at several blocks, several tiles per block, teams of 8 threads
-  per row at 64, 40, 16 and 8 rows per block, and ragged last tiles."""
+  per row at 64, 40, 16 and 8 rows per block, and ragged last tiles; the
+  case with a NaN iteration also writes the `_nan` column."""
 
 import ctypes
 import re
@@ -163,6 +167,31 @@ def test_nan_points_skip_the_write():
         torch.testing.assert_close(a, b)
 
 
+@pytest.mark.parametrize("where", ["point", "param"])
+def test_debug_nan_flags_the_nan_iterations(where):
+    """A NaN point reaches one iteration's gradient; a NaN parameter every
+    iteration's (no write ever clears it). `_nan` is 1 exactly there, and
+    the other columns equal the history without `debug_nan`."""
+    p, q = _nets()
+    x, xb = _points(6)
+    flat = _flat(p)
+    if where == "point":
+        x[2, 5] = float("nan")
+        expect = [0, 0, 1, 0, 0, 0]
+    else:
+        flat[7] = float("nan")
+        expect = [1] * 6
+    plain = af.advect_fit(af.init_state(flat), _flat(q), x, xb, WIDTHS,
+                          _hyper())
+    flagged = af.advect_fit(af.init_state(flat), _flat(q), x, xb, WIDTHS,
+                            _hyper(), debug_nan=True)
+    assert af.history_keys(True) == ["_active", "_lr", "_nan", "bc", "main"]
+    assert plain.shape == (6, 4) and flagged.shape == (6, 5)
+    assert flagged[:, 2].tolist() == expect
+    torch.testing.assert_close(flagged[:, [0, 1, 3, 4]], plain, rtol=0,
+                               atol=0, equal_nan=True)
+
+
 def test_two_chunks_equal_one():
     p, q = _nets()
     x, xb = _points(20)
@@ -274,6 +303,7 @@ _EMULATION_H = r"""
 #include <tuple>
 #include <vector>
 using std::isfinite;
+using std::isnan;
 #define __global__
 #define __device__
 #define __host__
@@ -328,6 +358,17 @@ inline int __syncthreads_and(int p) {
     if (threadIdx.x == 0) b.acc = 1;
     b.bar.arrive_and_wait();
     if (!p) b.acc = 0;
+    b.bar.arrive_and_wait();
+    const int r = b.acc;
+    b.bar.arrive_and_wait();
+    return r;
+}
+inline int __syncthreads_or(int p) {
+    EmuBlock& b = *emu_block;
+    b.bar.arrive_and_wait();
+    if (threadIdx.x == 0) b.acc = 0;
+    b.bar.arrive_and_wait();
+    if (p) b.acc = 1;
     b.bar.arrive_and_wait();
     const int r = b.acc;
     b.bar.arrive_and_wait();
@@ -407,7 +448,7 @@ def emulated_library(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.advect_fit_grid.argtypes = [i, i, p]
-    lib.advect_fit_f32.argtypes = [p] * 10 + [i, i, i, i, p, p, i, i, p]
+    lib.advect_fit_f32.argtypes = [p] * 10 + [i, i, i, i, p, p, i, i, i, p]
     return lib
 
 
@@ -425,7 +466,8 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
     """At every case the last tile is ragged (166, 340, 79, 100 and 63
     rows at 64, 64, 40, 8 and 16 rows per block: 38, 20, 39, 4 and 15 rows
     in the last); at 2 SMs a block walks several tiles; a second launch
-    gives the same bits."""
+    gives the same bits. The case with a NaN iteration runs with the
+    `_nan` column, which must equal the plain version's."""
     widths, n, nb, n_iters, patience, thr, nan_it, sms = case
     lib = emulated_library
     ctypes.c_int.in_dll(lib, "emu_sms").value = sms
@@ -440,10 +482,12 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
     if nan_it is not None:
         xb[nan_it, 3] = float("nan")
     hp = _hyper(plateau_patience=patience, plateau_threshold=thr)
+    debug_nan = nan_it is not None
+    cols = len(af.history_keys(debug_nan))
 
     def launch():
         got = af.init_state(p)
-        hist = torch.full((n_iters, 4), float("nan"))
+        hist = torch.full((n_iters, cols), float("nan"))
         partial = torch.full((2, grid, p.numel() + 2), float("nan"))
         assert lib.advect_fit_f32(
             got.params.data_ptr(), q.data_ptr(),
@@ -451,12 +495,12 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
             xb.data_ptr(), hist.data_ptr(), partial.data_ptr(), n_iters, n,
             nb, len(widths) - 1, c_widths,
             ctypes.cast(af._hyper_floats(hp), ctypes.c_void_p),
-            patience, 1, None) == 0
+            patience, 1, int(debug_nan), None) == 0
         return got, hist
 
     got, hist = launch()
     ref = af.init_state(p)
-    h_ref = af.advect_fit_reference(ref, q, x, xb, widths, hp)
+    h_ref = af.advect_fit_reference(ref, q, x, xb, widths, hp, debug_nan)
     assert torch.equal(hist[:, 0], h_ref[:, 0])
     torch.testing.assert_close(hist[:, 1:], h_ref[:, 1:], rtol=2e-3, atol=0,
                                equal_nan=True)
@@ -464,6 +508,8 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
     assert got.istate.tolist() == ref.istate.tolist()
     if nan_it is not None:
         assert ref.istate[2].item() == 1 and not h_ref[:, 0].all()
+        assert hist[:, 2].tolist() == [float(i == nan_it)
+                                       for i in range(n_iters)]
     if sms > 2:
         again, hist2 = launch()
         assert torch.equal(hist2, hist)
@@ -472,12 +518,12 @@ def test_cuda_source_matches_plain_version_in_host_emulation(
 
 
 def test_phase_probe_stamps_every_marked_boundary():
-    """`advect_phases` turns each `// phase:` mark of the source into a stamp
+    """`kernel_phases` turns each `// phase:` mark of the source into a stamp
     (setup and end into the accumulators' reset and flush) and leaves the
     rest of the source as it is."""
-    from insr_pde_tpu_torch import advect_phases
+    from insr_pde_tpu_torch import kernel_phases
     text = (cuda_build.CSRC / "advect_fit.cu").read_text()
-    stamped, names = advect_phases.stamped_source(text)
+    stamped, names = kernel_phases.stamped_source(text)
     assert names == ["forward", "loss", "reverse", "grads", "barrier", "sum",
                      "update"]
     marks = re.findall(r"^\s*// phase: (\w+)", text, flags=re.M)
@@ -485,5 +531,5 @@ def test_phase_probe_stamps_every_marked_boundary():
     assert stamped.count("PHASE_SETUP();") == 1
     assert stamped.count("PHASE_END();") == 1
     assert not re.search(r"^\s*// phase:", stamped, flags=re.M)
-    with pytest.raises(ValueError, match="anchor"):
-        advect_phases.stamped_source("int main() {}\n")
+    with pytest.raises(ValueError, match="setup"):
+        kernel_phases.stamped_source("int main() {}\n")

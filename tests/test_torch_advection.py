@@ -8,9 +8,15 @@
 * The whole model: both packages run `initialize` + one `step` from the
   same converted fields; they draw different points (see that test's bar).
 * `write_output`'s `.npz` reads as the JAX one does; checkpoints resume
-  across the packages both ways."""
+  across the packages both ways.
+* A relu network (no SIREN, so no fused fit): `_advect_loss` and its
+  gradient against JAX's at rtol 1e-5, and the advect phase through the
+  generic `Solver`.
+* `--debug_nan`: with a NaN parameter, the fused advect phase warns once
+  per chunk, as the JAX Solver does on the same fields."""
 
 import os
+import warnings
 
 import jax
 import numpy as np
@@ -262,10 +268,99 @@ def test_sample_boundary_matches_jax_geometry():
 
 
 def test_non_siren_network_refused(tmp_path):
-    cfg = TConfig(proj_dir=str(tmp_path), device="cpu", nonlinearity="relu",
+    """Only the hash grid, which the port has not ported yet, is refused:
+    relu and elu nets are taken (the tests below)."""
+    cfg = TConfig(proj_dir=str(tmp_path), device="cpu", network="hashgrid",
                   **BASE)
-    with pytest.raises(ValueError, match="siren"):
+    with pytest.raises(NotImplementedError, match="hashgrid"):
         tadv.Advection1DModel(cfg)
+
+
+def test_relu_advect_loss_matches_jax(tmp_path):
+    """The pure `_advect_loss` of a relu net (u and du/dx by vmapped
+    jacfwd in both packages) on JAX's points: loss terms and gradients at
+    rtol 1e-5 (atol 1e-5 of the largest gradient entry)."""
+    _, _, jm, tm = _models(tmp_path, nonlinearity="relu")
+    assert tm.advect_solver is None
+    key = jax.random.PRNGKey(7)
+    jaux = {"prev": jm.fields["field_prev"]}
+
+    def jtotal(p):
+        ld = jm._advect_loss(p, key, jaux)
+        return sum(ld.values()), ld
+
+    (_, jld), jgrad = jax.value_and_grad(jtotal, has_aux=True)(
+        jm.fields["field"])
+    tparams = [(w.clone().requires_grad_(True), b.clone().requires_grad_(True))
+               for w, b in tm.fields["field"]]
+    tld = tm._advect_loss(tparams, _jax_points(jm, "advect", key),
+                          {"prev": tm.fields["field_prev"]})
+    sum(tld.values()).backward()
+    assert set(tld) == set(jld) == {"main", "bc"}
+    for k in jld:
+        np.testing.assert_allclose(tld[k].item(), float(jld[k]), rtol=1e-5)
+    for jl, tl in zip(jax.tree_util.tree_leaves(jgrad),
+                      [t for wb in tparams for t in wb]):
+        jl = np.asarray(jl)
+        np.testing.assert_allclose(tl.grad.numpy(), jl, rtol=1e-5,
+                                   atol=1e-5 * np.abs(jl).max())
+
+
+def test_relu_advect_phase_runs_the_generic_solver(tmp_path):
+    """2x20 relu net, -sr 500, 200 iterations: the advect phase (as `step`
+    runs it, against a previous field that differs from the trained one, so
+    that the residual starts far from its minimum) is the generic Solver on
+    `_advect_loss`, with no fused fit and no launch, and the residual
+    drops."""
+    _, tcfg, _, tm = _models(tmp_path, nonlinearity="relu",
+                             sample_resolution=500, max_n_iters=200,
+                             chunk_size=100, lr=1e-3)
+    tcfg.setup_dirs()
+    before = af.advect_fit.launches
+    tm.begin_timestep()
+    res = tm._run_phase("advect", tm._advect_loss, tm._advect_points,
+                        tm.fields["field"],
+                        aux={"prev": tm.fields["field_prev"]},
+                        solver=tm.advect_solver)
+    assert type(tm._solvers["advect"]) is tadv.Solver
+    assert res.n_iters == 200 and af.advect_fit.launches == before
+    main = res.history["main"]
+    assert np.isfinite(main).all()
+    assert main[-10:].mean() < 0.5 * main[:10].mean()
+    tm.tb.close()
+
+
+def test_debug_nan_warns_once_per_chunk_as_jax(tmp_path):
+    """A NaN in one weight of the trained field: every gradient holds NaN,
+    no iteration writes, and both packages warn once per chunk (two chunks
+    of 10) with the same message."""
+    jcfg, tcfg, jm, tm = _models(tmp_path, max_n_iters=20, chunk_size=10,
+                                 debug_nan=True)
+    jcfg.setup_dirs()
+    tcfg.setup_dirs()
+    w0, b0 = jm.fields["field"][1]
+    jm.fields["field"][1] = (w0.at[3, 4].set(np.nan), b0)
+    tm.fields["field"][1][0][3, 4] = float("nan")
+    jm.begin_timestep()
+    tm.begin_timestep()
+    found = {}
+    for name, run in (
+            ("jax", lambda: jm._run_phase(
+                "advect", jm._advect_loss, jm.fields["field"],
+                aux={"prev": jm.fields["field_prev"]})),
+            ("port", lambda: tm._run_phase(
+                "advect", tm._advect_loss, tm._advect_points,
+                tm.fields["field"], aux={"prev": tm.fields["field_prev"]},
+                solver=tm.advect_solver))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+        found[name] = [str(w.message) for w in caught
+                       if "NaN gradients" in str(w.message)]
+    assert found["port"] == found["jax"] == [
+        "NaN gradients detected in chunk ending at iteration 10",
+        "NaN gradients detected in chunk ending at iteration 20"]
+    tm.tb.close()
 
 
 def test_advect_phase_counts_no_launch_on_the_cpu(tmp_path):

@@ -17,10 +17,11 @@
   The source is also compiled with the host C++ compiler against a small
   emulation of the CUDA runtime in which every block's threads run at once
   as std::threads, warp shuffles exchanging through a per-block buffer
-  between barriers, and held against the plain versions at J = 1, 4, 16
-  and 20, on a skewed pattern (one block with many times the mean degree),
-  with blocks that no slot addresses, and with blocks cut into several
-  chunks; two runs give the same bits.
+  between barriers, and held against the plain versions at J = 1, 3, 4, 16
+  and 20 (mv in its three vector modes, ragged last rows, slot counts that
+  are no multiple of the unroll), on a skewed pattern (one block with many
+  times the mean degree), with blocks that no slot addresses, and with
+  blocks cut into several chunks; two runs give the same bits.
 """
 
 import ctypes
@@ -189,10 +190,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         be.block_ell_mv(v, c, torch.from_numpy(x)[:-1])
     with pytest.raises(ValueError, match="vector"):
         be.block_ell_rmv(v, c, torch.from_numpy(r)[:-1], 6)
-    assert be.lanes(16) == (16, 16)
-    assert be.lanes(1) == (32, 1)
-    assert be.lanes(20) == (16, 16)
-    assert be.lanes(4) == (32, 4)
+    # mv: (lanes per row, floats per vector)
+    assert be.lanes(12, 16) == (16, 4)          # the channel operator
+    assert be.lanes(768, 1) == (32, 4)          # the TPU kernel's scalar ELL
+    assert be.lanes(3, 20) == (4, 4)
+    assert be.lanes(5, 4) == (2, 4)
+    assert be.lanes(24, 1) == (2, 4)
+    assert be.lanes(7, 1) == (2, 1)             # S % 4 != 0: scalar loads
+    assert be.lanes(6, 3) == (8, 1)
+    assert be.lanes(12, 16, aligned=False) == (32, 1)
     assert be.rmv_lanes(16) == (4, 4)
     assert be.rmv_lanes(1) == (1, 1)
     assert be.rmv_lanes(20) == (4, 4)
@@ -239,26 +245,75 @@ def test_kernels_match_plain_versions_on_card(cuda_device, R, S, J, nb):
 # reads its partner's between two barriers.
 _EMULATION_H = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <new>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
+#define __shared__
 #define __launch_bounds__(x)
 #define __restrict__
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local uint3_ threadIdx, blockIdx;
 inline uint3_ gridDim, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 74,
+       cudaDevAttrMultiProcessorCount = 16,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline std::barrier<>* emu_barrier = nullptr;
 inline std::vector<float> emu_lanes;
-inline cudaError_t cudaGetLastError() { return 0; }
+inline std::vector<float4> emu_smem;
+#define smem4 (emu_smem.data())
+inline std::atomic<int> emu_fault{0};
+inline cudaError_t cudaGetLastError() { return emu_fault.exchange(0); }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
+inline int emu_sms = 2;
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+    *n = 1;
+    return 0;
+}
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// the ring's mbarrier: phases completed, bytes still expected; a bulk copy
+// is a memcpy that checks the hardware's alignment rules
+struct EmuRingBar { std::atomic<unsigned> done; std::atomic<int> tx; };
+static_assert(sizeof(EmuRingBar) == sizeof(unsigned long long));
+inline std::atomic<int> emu_ring_stages{0};
+extern "C" int emu_ring_stages_taken() { return emu_ring_stages.exchange(0); }
+inline void ring_init(unsigned long long* bar) {
+    new (bar) EmuRingBar{};
+    ++emu_ring_stages;
+}
+inline void ring_expect(unsigned long long* bar, unsigned bytes) {
+    reinterpret_cast<EmuRingBar*>(bar)->tx += static_cast<int>(bytes);
+}
+inline void ring_copy(void* dst, const void* src, unsigned bytes, unsigned long long* bar) {
+    if (((reinterpret_cast<std::uintptr_t>(dst) | reinterpret_cast<std::uintptr_t>(src)
+          | bytes) & 15) != 0)
+        emu_fault = cudaErrorMisalignedAddress;
+    std::memcpy(dst, src, bytes);
+    EmuRingBar* b = reinterpret_cast<EmuRingBar*>(bar);
+    if ((b->tx -= static_cast<int>(bytes)) == 0) b->done.fetch_add(1);
+}
+inline void ring_fence() {}
+inline void ring_wait(unsigned long long* bar, unsigned parity) {
+    EmuRingBar* b = reinterpret_cast<EmuRingBar*>(bar);
+    while ((b->done.load() & 1u) == parity) std::this_thread::yield();
+}
 template <typename T> inline T __ldg(const T* p) { return *p; }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
     emu_lanes[threadIdx.x] = v;
     emu_barrier->arrive_and_wait();
@@ -267,11 +322,12 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
     return r;
 }
 template <typename K, typename... A>
-void emu_launch(K kernel, unsigned grid, unsigned threads, size_t, A... args) {
+void emu_launch(K kernel, unsigned grid, unsigned threads, size_t smem, A... args) {
     gridDim.x = grid;
     blockDim.x = threads;
     for (unsigned b = 0; b < grid; ++b) {
         emu_lanes.assign(threads, NAN);
+        emu_smem.assign(smem / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
         std::barrier<> bar(threads);
         emu_barrier = &bar;
         std::vector<std::thread> team;
@@ -291,7 +347,12 @@ def emulated_library(tmp_path_factory):
     src = (cuda_build.CSRC / "block_ell.cu").read_text()
     src, n = re.subn(r"(\w+)<<<([^,]+),([^,]+),([^,]+),[^>]+>>>\(",
                      r"emu_launch(\1, \2, \3, \4, ", src)
-    assert n == 3
+    assert n == 4
+    # the header's ring primitives take the place of the PTX ones
+    src, n = re.subn(r"// ring primitives \{\n.*?// \} ring primitives\n", "",
+                     src, flags=re.S)
+    assert n == 1
+    src = src.replace("extern __shared__ float4 smem4[];", "")
     out = tmp_path_factory.mktemp("emu_block_ell")
     (out / "cuda_runtime.h").write_text(_EMULATION_H)
     (out / "block_ell.cpp").write_text(src)
@@ -309,15 +370,23 @@ def emulated_library(tmp_path_factory):
 
 
 @pytest.mark.parametrize("R,S,J,nb,padded", [
-    (70, 24, 1, 300, False),    # the TPU kernel's scalar form: lanes take slots
+    (70, 24, 1, 300, False),    # the TPU kernel's scalar form: 4 slots a vector
     (45, 12, 16, 20, True),     # the vortex shape, 2 rows per warp
-    (40, 5, 4, 9, False),       # 8 slot lanes x 4 feature lanes
-    (33, 3, 20, 11, True),      # J not a power of two: 16 lanes, 2 passes
+    (40, 5, 4, 9, False),       # one 4-float vector per slot, 5 per row
+    (33, 3, 20, 11, True),      # J = 20: 5 vectors per slot
+    (37, 7, 1, 50, False),      # J = 1, S % 4 != 0: scalar loads
+    (290, 9, 3, 40, True),      # J = 3: scalar loads, 8 lanes, 2 steps
+    (530, 12, 16, 60, False),   # 34 ring tiles of 16 rows, the last ragged
+    (300, 4, 20, 25, True),     # ring tiles of 32 rows, 5 per block
 ])
 def test_cuda_source_matches_plain_versions_in_host_emulation(
         emulated_library, R, S, J, nb, padded):
-    """mv at 1e-5 relative to max |plain|; rmv at 1e-4 (longer sums); the
-    rmv over an index without the padding slots where rows are padded."""
+    """mv at 1e-5 relative to max |plain|, in the planned vector mode (the
+    ring of bulk-copied tiles where J % 4 == 0 and S % 4 == 0, walked by 2
+    blocks so that it wraps) and in scalar loads (the plan for unaligned
+    operands), the same bits on a second run; rmv at 1e-4 (longer sums);
+    the rmv over an index without the padding slots where rows are
+    padded."""
     lib = emulated_library
     vals, cols, x, r = _system(R, S, J, nb, seed=J, distinct=False)
     row_slots = None
@@ -329,22 +398,36 @@ def test_cuda_source_matches_plain_versions_in_host_emulation(
     v, c = torch.from_numpy(vals), torch.from_numpy(cols)
     xt, rt = torch.from_numpy(x), torch.from_numpy(r)
 
-    out = torch.full((R,), float("nan"))
-    G, F = be.lanes(J)
-    assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(), xt.data_ptr(),
-                                out.data_ptr(), R, S, J, G, F, None) == 0
     ref = be.block_ell_mv_reference(v, c, xt)
-    torch.testing.assert_close(out, ref, rtol=0,
-                               atol=1e-5 * ref.abs().max().item())
+    for aligned in (True, False):
+        G, V = be.lanes(S, J, aligned)
+        runs = []
+        for _ in range(2):
+            out = torch.full((R,), float("nan"))
+            assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(),
+                                        xt.data_ptr(), out.data_ptr(), R, S,
+                                        J, G, V, None) == 0
+            runs.append(out)
+        ring = aligned and J % 4 == 0 and S % 4 == 0
+        assert (lib.emu_ring_stages_taken() > 0) == ring
+        torch.testing.assert_close(runs[0], ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+        assert torch.equal(runs[0], runs[1])
 
     out = _emulated_rmv(lib, v, c, rt, nb, None if row_slots is None
                         else torch.from_numpy(row_slots))
     ref = be.block_ell_rmv_reference(v, c, rt, nb)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=1e-4 * ref.abs().max().item())
-    # bad lane counts are refused, not launched
+    # bad lane counts and vector widths are refused, not launched
     assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(), xt.data_ptr(),
-                                out.data_ptr(), R, S, J, 12, 4, None) != 0
+                                out.data_ptr(), R, S, J, 12, 1, None) != 0
+    assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(), xt.data_ptr(),
+                                out.data_ptr(), R, S, J, 4, 2, None) != 0
+    if J % 4 and (J != 1 or S % 4):
+        assert lib.block_ell_mv_f32(v.data_ptr(), c.data_ptr(),
+                                    xt.data_ptr(), out.data_ptr(), R, S, J,
+                                    4, 4, None) != 0
 
 
 def _emulated_rmv(lib, v, c, rt, nb, row_slots=None, chunk=be.RMV_CHUNK):

@@ -385,3 +385,46 @@ def test_relu_network_refused(tmp_path):
                   **BASE)
     with pytest.raises(ValueError, match="second derivatives"):
         tfluid.Fluid2DModel(cfg)
+
+
+@pytest.mark.parametrize("phase", ["advect_velocity", "solve_pressure",
+                                   "projection"])
+def test_phase_trace_fits_each_split_phase(tmp_path, monkeypatch, phase):
+    """`phase_trace` builds the split model and traces each phase's fits
+    (on the CPU the profiler sees no device events, so the counts are 0);
+    on a CPU-only build it refuses to run."""
+    from insr_pde_tpu_torch import phase_trace
+    from insr_pde_tpu_torch.__main__ import build_model
+    from insr_pde_tpu_torch.config import parse_args
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    args = list(phase_trace._MODEL_ARGS)
+    args[args.index("-sr") + 1] = "16"
+    model = build_model(parse_args(
+        args + ["--proj_dir", str(tmp_path), "--tag", "t", "--device", "cpu"],
+        phase="train"))
+    fits = phase_trace.trace_fits(model, phase, fits=2, iters=2)
+    assert [f[:2] for f in fits] == [(0.0, 0.0), (0.0, 0.0)]
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            phase_trace.main(["--fits", "1"])
+
+
+def test_device_summary_counts_device_events_per_iteration():
+    """`phase_trace.device_summary` keeps only device events, and gives
+    their count, summed duration and per-name split per iteration."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from insr_pde_tpu_torch.phase_trace import device_summary
+
+    def event(name, us, dev=DeviceType.CUDA):
+        return NS(name=name, device_type=dev,
+                  time_range=NS(elapsed_us=lambda: us))
+
+    prof = NS(events=lambda: [event("a", 30.0), event("b", 10.0),
+                              event("a", 50.0),
+                              event("host", 900.0, DeviceType.CPU)])
+    events, busy, by_name = device_summary(prof, iters=2)
+    assert (events, busy) == (1.5, 0.045)
+    assert by_name == {"a": (1.0, 0.04), "b": (0.5, 0.005)}

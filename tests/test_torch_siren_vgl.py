@@ -29,6 +29,7 @@ import torch
 from insr_pde_tpu.models.networks import MLP as JMLP
 from insr_pde_tpu.ops import forward_laplacian as jfl
 from insr_pde_tpu_torch.convert import params_from_jax
+from insr_pde_tpu_torch.kernel_variants import VARIANTS
 from insr_pde_tpu_torch.models.networks import MLP
 from insr_pde_tpu_torch.ops import cuda_build
 from insr_pde_tpu_torch.ops.forward_laplacian import value_grad_laplacian
@@ -212,19 +213,24 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape):
         torch.testing.assert_close(got.grad, ref, rtol=1e-4, atol=5e-3)
 
 
-# The CUDA runtime as far as csrc/siren_vgl.cu uses it, on the host. Shared
-# memory starts as NaN in every block, so a read before a write shows.
+# The CUDA runtime as far as csrc/siren_vgl.cu uses it, on the host: a
+# launch runs the grid's blocks one after another, each block's threads at
+# once, with a block barrier and a barrier per warp (the shuffles exchange
+# through a per-block buffer between two of its waits). Shared memory
+# starts as NaN in every block, so a read before a write shows.
 _EMULATION_H = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __shared__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 struct float4 { float x, y, z, w; };
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
@@ -234,10 +240,30 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline std::barrier<>* emu_barrier = nullptr;
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-inline std::vector<float4> emu_smem;
-#define smem4 (emu_smem.data())
+struct EmuBlock {
+    std::barrier<> bar;
+    std::vector<float4> smem;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    std::vector<float> lanes;
+    EmuBlock(unsigned threads, size_t n) : bar(threads),
+        smem(n, float4{NAN, NAN, NAN, NAN}), lanes(threads, NAN) {
+        for (unsigned w = 0; w * 32 < threads; ++w)
+            warps.emplace_back(new std::barrier<>(std::min(32u, threads - 32 * w)));
+    }
+};
+inline EmuBlock* emu_block = nullptr;
+#define smem4 (emu_block->smem.data())
+inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+    EmuBlock& b = *emu_block;
+    std::barrier<>& w = *b.warps[threadIdx.x / 32];
+    b.lanes[threadIdx.x] = v;
+    w.arrive_and_wait();
+    const float r = b.lanes[threadIdx.x ^ off];
+    w.arrive_and_wait();
+    return r;
+}
+template <typename T> inline T __ldg(const T* p) { return *p; }
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -247,9 +273,8 @@ void emu_launch(K kernel, unsigned grid, unsigned threads, size_t smem, A... arg
     gridDim.x = grid;
     blockDim.x = threads;
     for (unsigned b = 0; b < grid; ++b) {
-        emu_smem.assign(smem / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
-        std::barrier<> bar(threads);
-        emu_barrier = &bar;
+        EmuBlock block(threads, smem / sizeof(float4) + 1);
+        emu_block = &block;
         std::vector<std::thread> team;
         for (unsigned t = 0; t < threads; ++t)
             team.emplace_back([=]() { threadIdx.x = t; blockIdx.x = b; kernel(args...); });
@@ -268,7 +293,8 @@ def emulated_library(tmp_path_factory):
         pytest.skip("needs g++ (C++20) to build the CUDA source for the host")
     src = (cuda_build.CSRC / "siren_vgl.cu").read_text()
     src = src.replace("extern __shared__ float4 smem4[];", "")
-    src = src.replace("MAX_BWD_BLOCKS = 256", "MAX_BWD_BLOCKS = 2")
+    src = src.replace("BWD_GRID_MIN = 256", "BWD_GRID_MIN = 2")
+    src = src.replace("PARTIAL_FLOATS = 1 << 21", "PARTIAL_FLOATS = 0")
     src = re.sub(r"(\w+(?:<\w+>)?)<<<([^,]+),([^,]+),([^,]+),[^>]+>>>\(",
                  r"emu_launch(\1, \2, \3, \4, ", src)
     out = tmp_path_factory.mktemp("emu")
@@ -284,11 +310,15 @@ def emulated_library(tmp_path_factory):
 
 
 @pytest.mark.parametrize("shape", [(2, 1, 3, 32, 300), (3, 2, 1, 24, 32),
-                                   (1, 1, 2, 20, 70), (2, 1, 2, 128, 21)])
+                                   (1, 1, 2, 20, 70), (2, 1, 2, 128, 21),
+                                   (1, 1, 3, 32, 45), (3, 1, 2, 32, 77)])
 def test_cuda_source_matches_plain_versions_in_host_emulation(
         emulated_library, shape):
     """The kernels' code, run by host threads: forward at the pins'
-    forward tolerances, backward (random cotangents) at the backward's."""
+    forward tolerances; backward with random cotangents at the backward's
+    and with the L-only cotangents of the pressure loss at theirs. N is no
+    multiple of the tile (32 rows at width 32 and d <= 2, 16 at d = 3, 8 at
+    width 128); a second backward gives the same bits."""
     d, m, layers, width, n = shape
     lib = emulated_library
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -306,22 +336,67 @@ def test_cuda_source_matches_plain_versions_in_host_emulation(
     assert lib.siren_vgl_forward_f32(
         x.data_ptr(), packed.data_ptr(), *(o.data_ptr() for o in outs), n, d,
         layers + 2, c_widths, 30.0, None) == 0
-    for got, ref, rtol, atol in zip(outs, siren_vgl_reference(params, x),
-                                    (1e-5, 1e-5, 1e-4), (1e-5, 1e-4, 2e-3)):
-        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+    ref = siren_vgl_reference(params, x)
+    for got, r, rtol, atol in zip(outs, ref, (1e-5, 1e-5, 1e-4),
+                                  (1e-5, 1e-4, 2e-3)):
+        torch.testing.assert_close(got, r, rtol=rtol, atol=atol)
 
-    cots = [torch.randn(o.shape, generator=g) for o in outs]
     blocks = lib.siren_vgl_backward_blocks(n, d, layers + 2, c_widths)
     assert blocks in (1, 2)
-    scratch = torch.full((blocks, packed.numel()), float("nan"))
-    gp = torch.full_like(packed, float("nan"))
-    gx = torch.full_like(x, float("nan"))
-    assert lib.siren_vgl_backward_f32(
-        x.data_ptr(), packed.data_ptr(), *(c.data_ptr() for c in cots),
-        scratch.data_ptr(), gp.data_ptr(), gx.data_ptr(), n, d, layers + 2,
-        c_widths, 30.0, None) == 0
-    g_ref, gx_ref = siren_vgl_backward_reference(params, x, *cots)
-    torch.testing.assert_close(gp, torch.cat([t.reshape(-1) for t in
-                                              _leaves(g_ref)]),
-                               rtol=1e-4, atol=5e-3)
-    torch.testing.assert_close(gx, gx_ref, rtol=1e-4, atol=5e-3)
+
+    def backward(cots):
+        scratch = torch.full((blocks, packed.numel()), float("nan"))
+        gp = torch.full_like(packed, float("nan"))
+        gx = torch.full_like(x, float("nan"))
+        assert lib.siren_vgl_backward_f32(
+            x.data_ptr(), packed.data_ptr(), *(c.data_ptr() for c in cots),
+            scratch.data_ptr(), gp.data_ptr(), gx.data_ptr(), n, d,
+            layers + 2, c_widths, 30.0, None) == 0
+        return gp, gx
+
+    target = torch.sin(3.0 * x[:, :1]) * torch.cos(2.0 * x[:, -1:])
+    kinds = [([torch.randn(o.shape, generator=g) for o in outs], (1e-4, 5e-3)),
+             ([torch.zeros_like(outs[0]), torch.zeros_like(outs[1]),
+               2.0 * (ref[2] - target) / n], (5e-3, 1e-3))]
+    for cots, (rtol, atol) in kinds:
+        gp, gx = backward(cots)
+        g_ref, gx_ref = siren_vgl_backward_reference(params, x, *cots)
+        torch.testing.assert_close(gp, torch.cat([t.reshape(-1) for t in
+                                                  _leaves(g_ref)]),
+                                   rtol=rtol, atol=atol)
+        torch.testing.assert_close(gx, gx_ref, rtol=rtol, atol=atol)
+    again = backward(cots)
+    assert torch.equal(again[0], gp) and torch.equal(again[1], gx)
+
+
+def test_phase_probe_stamps_the_backward():
+    """`kernel_phases` finds the backward's `// phase:` marks (recompute,
+    the layer inputs, the weight gradients, G W^T with the reverse rules)
+    and puts its prelude after the source's include."""
+    from insr_pde_tpu_torch import kernel_phases
+    text = (cuda_build.CSRC / "siren_vgl.cu").read_text()
+    stamped, names = kernel_phases.stamped_source(text)
+    assert names == ["recompute", "inputs", "wgrad", "gwt"]
+    assert stamped.count("PHASE_SETUP();") == stamped.count("PHASE_END();") == 1
+    assert stamped.index("#include <cuda_runtime.h>") \
+        < stamped.index("__device__ long long g_phase_acc")
+    assert "SMEM_LIMIT = 232448 - 256;" in stamped
+
+
+@pytest.mark.parametrize("kernel,name", [
+    (k, n) for k, vs in sorted(VARIANTS.items()) for n in sorted(vs)])
+def test_kernel_variants_apply_to_the_committed_sources(kernel, name):
+    """Every measured design of `kernel_variants` still patches its
+    committed source (each replacement exactly once), and a variant of a
+    source with phase marks keeps them for the probe."""
+    from insr_pde_tpu_torch import kernel_phases, kernel_variants
+    text = (cuda_build.CSRC / f"{kernel}.cu").read_text()
+    out = kernel_variants.patched(kernel, name, text)
+    assert out != text
+    for _, new in kernel_variants.VARIANTS[kernel][name]:
+        assert new in out
+    if "// phase: setup" in text:
+        assert kernel_phases.stamped_source(out)[1] \
+            == kernel_phases.stamped_source(text)[1]
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        kernel_variants.patched(kernel, name, "int main() {}\n")

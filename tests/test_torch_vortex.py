@@ -232,3 +232,26 @@ def test_unported_options_raise(pairs):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tv.VortexModel(tv.VortexConfig(**BASE, **{flag: True}),
                            log=False, device="cpu")
+
+
+def test_vortex_stats_of_both_packages_field_files(tmp_path, pairs):
+    """`vortex_stats` on the `field.npy` each package writes from the same
+    coefficients: the inlet error of the file's grid equals the JAX
+    package's `inlet_error` at that resolution (1e-4 relative), and max |u|
+    the largest velocity component of the sampled field, for both files."""
+    from insr_pde_tpu_torch import vortex_stats
+    jm, tm = pairs["stream"]
+    tm.params = tm.params._replace(u=torch.from_numpy(np.array(jm.params.u)))
+    jm.write_output(str(tmp_path / "jax"), resolution=16)
+    tm.write_output(str(tmp_path / "port"), resolution=16)
+    jf = np.asarray(jm.sample_field(16)[0])
+    for pkg in ("jax", "port"):
+        stats = vortex_stats.field_stats(
+            np.load(tmp_path / pkg / "field.npy"), jm.cfg.internal_v)
+        assert stats["resolution"] == 16
+        np.testing.assert_allclose(stats["inlet_error"],
+                                   j_inlet_error(jm, 16), rtol=1e-4)
+        np.testing.assert_allclose(stats["max_u"],
+                                   np.abs(jf[..., :2]).max(), rtol=1e-5)
+    with pytest.raises(ValueError, match="grid"):
+        vortex_stats.field_stats(np.zeros((2, 15, 3)), 1.0)
