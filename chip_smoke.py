@@ -11,8 +11,9 @@ result line):
      pins and at the main path's shapes, with max abs error and median
      times: the fused SIREN forward, and the fused value+gradient+Laplacian
      forward and backward (random cotangents on all three outputs, and the
-     L-only cotangents of the pressure loss; two runs of the backward must
-     give the same bits for each); then the pressure phase's
+     L-only cotangents of the pressure loss); two runs of each forward, and
+     of the backward for each cotangent kind, must give the same bits at
+     every shape; then the pressure phase's
      gradient program at 16,384 points through the kernel pair against the
      plain chain and autograd;
   4. main path: `python -m insr_pde_tpu_torch fluid` (split timestep, SIREN
@@ -348,6 +349,7 @@ def phase_kernels():
     for name, net, x, atol in cases:
         params = net.init(gen)
         out = siren_forward(params, x)
+        again = siren_forward(params, x)
         torch.cuda.synchronize()
         ref = siren_forward_reference(params, x)
         torch.cuda.synchronize()
@@ -355,6 +357,9 @@ def phase_kernels():
         if not torch.isfinite(out).all() or err > atol:
             raise RuntimeError(f"[kernel] {name}: max abs err {err:.3e} > "
                                f"atol {atol:.0e} (or non-finite output)")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"[kernel] siren_forward {name}: two runs "
+                               "differ")
         packed, widths = pack_params(params)
         buf = torch.empty_like(out)
         ms = _median_ms(lambda: launch(packed, widths, x, buf), reps=15)
@@ -363,7 +368,8 @@ def phase_kernels():
         bound_ms, bound_by = _siren_bound_ms(widths, x.shape[0])
         torch.cuda.synchronize()
         print(f"[kernel] siren_forward {name}: N={x.shape[0]} widths="
-              f"{widths} max_abs_err={err:.3e} (atol {atol:.0e}) kernel "
+              f"{widths} max_abs_err={err:.3e} (atol {atol:.0e}), two runs "
+              f"the same bits; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
               f"ms ({bound_by})", flush=True)
         if name == "fluid_vr128_16384":
@@ -393,11 +399,16 @@ def phase_vgl_kernels():
         packed, widths = pack_params(params)
         outs = [torch.empty(s, device=dev) for s in ((n, m), (n, d, m), (n, m))]
         launch_forward(packed, widths, x, *outs)
+        again = [torch.empty_like(t) for t in outs]
+        launch_forward(packed, widths, x, *again)
         torch.cuda.synchronize()
         ref = siren_vgl_reference(params, x)
         fwd_errs = {k: _vgl_check(f"siren_vgl_forward {name} {k}", got, r,
                                   *VGL_FWD_TOL[k])
                     for k, got, r in zip("uJL", outs, ref)}
+        if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+            raise RuntimeError(f"[kernel] siren_vgl_forward {name}: two runs "
+                               "differ")
 
         # random cotangents on all three outputs, scaled by min(1, 300 / n)
         # so that the weight gradients' sums keep the magnitude of the pins
@@ -444,7 +455,7 @@ def phase_vgl_kernels():
         print(f"[kernel] siren_vgl_forward {name}: N={n} widths={widths} "
               "max_abs_err " + " ".join(f"{k} {v:.3e}" for k, v in
                                         fwd_errs.items())
-              + f"; kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound "
+              + f", two runs the same bits; kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound "
               f"{fwd_bound:.5f} ms ({fwd_by})", flush=True)
         print(f"[kernel] siren_vgl_backward {name}: N={n} widths={widths} "
               f"blocks={scratch.shape[0]} max_abs_err random "

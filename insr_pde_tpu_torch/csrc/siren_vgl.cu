@@ -27,19 +27,28 @@
 // block, set its time.
 //
 // Design, and what it does about that:
-//   * A block owns `rows` rows (a power of two, at most 64) and 256 threads:
-//     a team of 256 / rows threads per row, each computing every n-th group
-//     of output columns (8 in the forward, 4 in the backward, whose blocks
-//     hold fewer rows and so larger teams), for all d + 2 channels at once,
-//     so that each weight read from shared memory feeds d + 2 fmas.
+//   * The forward is the layer engine of csrc/sine_mlp_tile.cuh (shared with
+//     the SIREN forward) at d + 2 channels: every layer's weights staged
+//     once per block by cp.async (a two-layer ring at width 128), one
+//     activation buffer, the last layer spread over the block; a thread
+//     takes FWD_R = 2 rows x 8 columns at one block per SM (width 128:
+//     32-row tiles), or 1 row x 8 columns at two blocks per SM where that
+//     keeps more threads busy (the pressure phase: 63-row tiles, 261 blocks
+//     on 132 SMs). Its
+//     first design (64-row tiles, one layer staged at a time behind two
+//     barriers, one row per thread) ran at 25% of its bound.
+//   * A backward block owns `rows` rows (a power of two, at most 64) and
+//     256 threads: a team of 256 / rows threads per row in the recompute and
+//     in G W^T, each computing every n-th group of 4 output columns for all
+//     d + 2 channels at once, so that each weight read from shared memory
+//     feeds d + 2 fmas.
 //   * Activations, stored pre-activations and cotangents live in shared
 //     memory channel- and column-major with a row stride of rows + 1 (odd):
 //     the layer products read neighbouring rows of one column (neighbouring
 //     banks).
 //   * One layer's W and b (or W^T in the reverse sweep) are staged in shared
 //     memory at a time, zero-padded to a multiple of 8 columns, with four
-//     loads in flight per thread. The forward takes the largest power of two
-//     of rows whose buffers fit the 227 KB a block may hold.
+//     loads in flight per thread.
 //   * The backward keeps z, Jz and Lz of every hidden layer per row. Its
 //     first design (64 rows, ~204 KB: one block of 8 warps per SM; each
 //     weight gradient one thread's sum of C x rows terms, two shared loads
@@ -81,23 +90,29 @@
 //     factors.
 // `// phase:` comments mark where the backward's time is split
 // (`python -m insr_pde_tpu_torch.kernel_phases siren_vgl` stamps a copy of
-// this source there).
+// this source there); the forward's `// phase[fwd]:` marks are in the
+// engine's header.
 
 #include <cuda_runtime.h>
 
+#include "sine_mlp_tile.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+// the card's and the layers' facts, shared with the forward engine
+using sine_mlp::allow_max_smem;
+using sine_mlp::BLOCK_RESERVED;
+using sine_mlp::MAX_LAYERS;
+using sine_mlp::MAX_WIDTH;
+using sine_mlp::pad_cols;  // layers are padded to a multiple of 8 columns
+using sine_mlp::SM_SMEM;
+using sine_mlp::SMEM_LIMIT;
+using sine_mlp::THREADS;
+
 constexpr int MAX_ROWS = 64;      // rows per block at most
-constexpr int CG = 8;             // forward: output columns per register group
-constexpr int BWD_CG = 4;         // backward: the same
-constexpr int PAD = 8;            // layers are padded to a multiple of 8 columns
-constexpr int MAX_WIDTH = 128;    // widest layer (as the TPU kernels' 128 lanes)
-constexpr int MAX_LAYERS = 32;
+constexpr int FWD_R = 2;          // forward: rows per thread at one block per SM
+constexpr int BWD_CG = 4;         // backward: output columns per register group
 constexpr int MAX_D = 3;
-constexpr int SMEM_LIMIT = 232448;    // 227 KB of dynamic shared memory per block
-constexpr int SM_SMEM = 233472;       // 228 KB of shared memory per SM
-constexpr int BLOCK_RESERVED = 1024;  // the runtime's shared memory per block
 constexpr int BWD_BLOCKS_PER_SM = 2;  // the backward's row plan aims at this
 constexpr int BWD_GRID_MIN = 256;     // the backward's grid: at least this many
 constexpr int PARTIAL_FLOATS = 1 << 21;  // blocks, more while their partials fit this
@@ -118,8 +133,6 @@ struct VglDims {
     int offset[MAX_LAYERS];       // W_l at packed + offset[l] (fin x fout), b_l after it
     int s_off[MAX_LAYERS];        // backward: z, Jz, Lz of hidden layer l in shared memory
 };
-
-__host__ __device__ inline int pad_cols(int n) { return (n + PAD - 1) / PAD * PAD; }
 
 // Element (channel c, column k, row r) of a tile in shared memory.
 struct Tile {
@@ -215,75 +228,6 @@ __device__ inline void stage_transposed(const float* __restrict__ W, int fin,
 #pragma unroll
         for (int u = 0; u < 4; ++u)
             if (i0 + u * THREADS < n) w_s[i0 + u * THREADS] = v[u];
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-vgl_forward_kernel(const float* __restrict__ coords,
-                   const float* __restrict__ packed, float* __restrict__ u,
-                   float* __restrict__ jac, float* __restrict__ lap,
-                   int n_rows, VglDims dims, float omega) {
-    constexpr int C = D + 2;
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    const int rows = dims.rows;
-    const int rs = rows + 1;
-    const int aw = dims.act_width;
-    Tile t_in{smem, aw, rs};
-    Tile t_out{smem + C * aw * rs, aw, rs};
-    float* w_s = smem + 2 * C * aw * rs;
-
-    const int tid = threadIdx.x;
-    const int r = tid % rows;
-    const int team = tid / rows;
-    const int n_team = THREADS / rows;
-    const long long row0 = static_cast<long long>(blockIdx.x) * rows;
-    const long long row = row0 + r;
-    const bool valid = row < n_rows;
-    const float w2 = omega * omega;
-
-    load_inputs<D>(coords, t_in, row0, n_rows, rows);
-    for (int l = 0; l < dims.n_layers; ++l) {
-        const int fin = dims.width[l];
-        const int fout = dims.width[l + 1];
-        const int fpad = pad_cols(fout);
-        const float* b_s = w_s + fin * fpad;
-        const bool last = l == dims.n_layers - 1;
-        // every thread is done with the previous layer's W and input
-        __syncthreads();
-        stage_layer(packed + dims.offset[l], fin, fout, w_s);
-        __syncthreads();
-
-        for (int c0 = team * CG; c0 < fpad; c0 += n_team * CG) {
-            float acc[C][CG];
-            tile_product<C, CG>(t_in, r, fin, w_s, fpad, c0, acc);
-#pragma unroll
-            for (int j = 0; j < CG; ++j) {
-                const int col = c0 + j;
-                const float z = acc[0][j] + b_s[col];
-                if (!last) {
-                    float s, c;
-                    sincosf(omega * z, &s, &c);
-                    const float wc = omega * c;
-                    float q = 0.0f;
-#pragma unroll
-                    for (int a = 0; a < D; ++a) q = fmaf(acc[1 + a][j], acc[1 + a][j], q);
-                    t_out(0, col, r) = s;
-#pragma unroll
-                    for (int a = 0; a < D; ++a) t_out(1 + a, col, r) = wc * acc[1 + a][j];
-                    t_out(C - 1, col, r) = wc * acc[C - 1][j] - w2 * s * q;
-                } else if (valid && col < fout) {
-                    u[row * fout + col] = z;
-#pragma unroll
-                    for (int a = 0; a < D; ++a) jac[(row * D + a) * fout + col] = acc[1 + a][j];
-                    lap[row * fout + col] = acc[C - 1][j];
-                }
-            }
-        }
-        const Tile t = t_in;
-        t_in = t_out;
-        t_out = t;
     }
 }
 
@@ -643,43 +587,43 @@ cudaError_t make_dims(int d, int n_layers, const int* widths, VglDims& dims) {
     return cudaSuccess;
 }
 
-// Floats of one staged layer: W and b, or W^T in the reverse sweep.
-int weight_floats(const VglDims& dims, bool backward) {
+// Floats of one staged layer: W and b (the recompute), or W^T (the reverse
+// sweep).
+int weight_floats(const VglDims& dims) {
     int most = 0;
     for (int l = 0; l < dims.n_layers; ++l) {
         const int fin = dims.width[l];
         const int fout = dims.width[l + 1];
         int f = fin * pad_cols(fout) + pad_cols(fout);
-        if (backward && fout * pad_cols(fin) > f) f = fout * pad_cols(fin);
+        if (fout * pad_cols(fin) > f) f = fout * pad_cols(fin);
         if (f > most) most = f;
     }
     return most;
 }
 
-// Dynamic shared memory of a block of `rows` rows; fills s_off/s_total.
-size_t smem_bytes(VglDims& dims, int rows, bool backward) {
+// Dynamic shared memory of a backward block of `rows` rows; fills
+// s_off/s_total.
+size_t smem_bytes(VglDims& dims, int rows) {
     const int C = dims.d + 2;
     const int rs = rows + 1;
     int s_total = 0;
-    if (backward) {
-        for (int l = 0; l < dims.n_layers - 1; ++l) {
-            dims.s_off[l] = s_total;
-            s_total += C * pad_cols(dims.width[l + 1]) * rs;
-        }
+    for (int l = 0; l < dims.n_layers - 1; ++l) {
+        dims.s_off[l] = s_total;
+        s_total += C * pad_cols(dims.width[l + 1]) * rs;
     }
     dims.s_total = s_total;
     return (static_cast<size_t>(s_total) + 2 * C * dims.act_width * rs
-            + weight_floats(dims, backward)) * sizeof(float);
+            + weight_floats(dims)) * sizeof(float);
 }
 
-// The largest power-of-two row count whose buffers fit; 0 if none does.
-// The backward first looks, from 8 rows up, for one that lets
-// BWD_BLOCKS_PER_SM blocks share an SM.
-size_t plan_rows(VglDims& dims, bool backward) {
+// The backward's rows: the largest power of two, from 8 rows up, that lets
+// BWD_BLOCKS_PER_SM blocks share an SM, else the largest whose buffers fit;
+// 0 if none does.
+size_t plan_rows(VglDims& dims) {
     const size_t shared = static_cast<size_t>(SM_SMEM / BWD_BLOCKS_PER_SM - BLOCK_RESERVED);
-    if (backward && shared < static_cast<size_t>(SMEM_LIMIT)) {
+    if (shared < static_cast<size_t>(SMEM_LIMIT)) {
         for (int rows = MAX_ROWS; rows >= 8; rows /= 2) {
-            const size_t bytes = smem_bytes(dims, rows, true);
+            const size_t bytes = smem_bytes(dims, rows);
             if (bytes <= shared) {
                 dims.rows = rows;
                 dims.rows_log2 = __builtin_ctz(rows);
@@ -688,7 +632,7 @@ size_t plan_rows(VglDims& dims, bool backward) {
         }
     }
     for (int rows = MAX_ROWS; rows >= 1; rows /= 2) {
-        const size_t bytes = smem_bytes(dims, rows, backward);
+        const size_t bytes = smem_bytes(dims, rows);
         if (bytes <= static_cast<size_t>(SMEM_LIMIT)) {
             dims.rows = rows;
             dims.rows_log2 = __builtin_ctz(rows);
@@ -709,33 +653,28 @@ int bwd_grid(int n_rows, const VglDims& dims) {
     return n_tiles < cap ? n_tiles : cap;
 }
 
-// Raise a kernel's dynamic shared-memory limit once per device, at the first
-// call, so that later calls (and CUDA graph captures) make no attribute call.
-template <typename Kernel>
-cudaError_t allow_max_smem(Kernel kernel, bool* done) {
-    constexpr int MAX_DEVICES = 64;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_LIMIT);
-    if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-    return err;
+// The forward: the engine of csrc/sine_mlp_tile.cuh at d + 2 channels.
+template <int D, int R>
+__global__ void __launch_bounds__(sine_mlp::THREADS, sine_mlp::blocks_per_sm(R))
+vgl_forward_kernel(const float* __restrict__ coords,
+                   const float* __restrict__ packed, float* __restrict__ u,
+                   float* __restrict__ jac, float* __restrict__ lap,
+                   int n_rows, sine_mlp::Plan plan, float omega) {
+    sine_mlp::forward_tiles<D, R>(coords, packed, u, jac, lap, n_rows, plan, omega);
 }
 
 template <int D>
 cudaError_t launch_forward(const float* coords, const float* packed, float* u,
                            float* jac, float* lap, int n_rows,
-                           const VglDims& dims, size_t smem, float omega,
-                           cudaStream_t stream) {
-    static bool done[64] = {};
-    const cudaError_t err = allow_max_smem(vgl_forward_kernel<D>, done);
-    if (err != cudaSuccess) return err;
-    const unsigned blocks = static_cast<unsigned>((n_rows + dims.rows - 1) / dims.rows);
-    vgl_forward_kernel<D><<<blocks, THREADS, smem, stream>>>(
-        coords, packed, u, jac, lap, n_rows, dims, omega);
-    return cudaGetLastError();
+                           const sine_mlp::Plan& plan, int R, size_t smem, int sms,
+                           float omega, cudaStream_t stream) {
+    static sine_mlp::LaunchCache cache[2];
+    if (R == 1)
+        return sine_mlp::launch_tiles(vgl_forward_kernel<D, 1>, plan, smem, sms, cache[0],
+                                      stream, coords, packed, u, jac, lap, n_rows, plan,
+                                      omega);
+    return sine_mlp::launch_tiles(vgl_forward_kernel<D, FWD_R>, plan, smem, sms, cache[1],
+                                  stream, coords, packed, u, jac, lap, n_rows, plan, omega);
 }
 
 // The backward on the tiles of `rows` rows, then the reduction.
@@ -785,7 +724,7 @@ extern "C" int siren_vgl_backward_blocks(int n_rows, int d, int n_layers,
     VglDims dims;
     cudaError_t err = make_dims(d, n_layers, widths, dims);
     if (err != cudaSuccess || n_rows < 1) return -static_cast<int>(cudaErrorInvalidValue);
-    if (plan_rows(dims, true) == 0) return -static_cast<int>(cudaErrorInvalidValue);
+    if (plan_rows(dims) == 0) return -static_cast<int>(cudaErrorInvalidValue);
     return bwd_grid(n_rows, dims);
 }
 
@@ -799,17 +738,22 @@ extern "C" int siren_vgl_forward_f32(const float* coords, const float* packed,
                                      int n_rows, int d, int n_layers,
                                      const int* widths, float omega,
                                      void* stream) {
-    VglDims dims;
-    cudaError_t err = make_dims(d, n_layers, widths, dims);
-    if (err != cudaSuccess || n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = plan_rows(dims, false);
-    if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+    sine_mlp::Plan plan;
+    cudaError_t err = sine_mlp::plan_layers(n_layers, widths, plan);
+    if (err != cudaSuccess || d < 1 || d > MAX_D || widths[0] != d || n_rows < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (n_rows == 0) return 0;
+    int sms = 0;
+    err = sine_mlp::sm_count(&sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int R = 0;
+    const size_t smem = sine_mlp::choose_plan(plan, d + 2, FWD_R, n_rows, sms, &R);
+    if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (d) {
-        case 1: err = launch_forward<1>(coords, packed, u, jac, lap, n_rows, dims, smem, omega, s); break;
-        case 2: err = launch_forward<2>(coords, packed, u, jac, lap, n_rows, dims, smem, omega, s); break;
-        default: err = launch_forward<3>(coords, packed, u, jac, lap, n_rows, dims, smem, omega, s); break;
+        case 1: err = launch_forward<1>(coords, packed, u, jac, lap, n_rows, plan, R, smem, sms, omega, s); break;
+        case 2: err = launch_forward<2>(coords, packed, u, jac, lap, n_rows, plan, R, smem, sms, omega, s); break;
+        default: err = launch_forward<3>(coords, packed, u, jac, lap, n_rows, plan, R, smem, sms, omega, s); break;
     }
     return static_cast<int>(err);
 }
@@ -829,7 +773,7 @@ extern "C" int siren_vgl_backward_f32(const float* coords, const float* packed,
     VglDims dims;
     cudaError_t err = make_dims(d, n_layers, widths, dims);
     if (err != cudaSuccess || n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = plan_rows(dims, true);
+    const size_t smem = plan_rows(dims);
     if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (d) {

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc` for
 sm_90a into `insr_pde_tpu_torch/_build/` (listed in `.gitignore`) at first
-use, keyed on the hash of the source and the flags, and loaded with
-`ctypes`. Nothing is built or imported when this module is imported.
+use, keyed on the hash of the source (with the `csrc/` headers it includes)
+and the flags, and loaded with `ctypes`. Nothing is built or imported when
+this module is imported.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,8 +44,30 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin; the CUDA kernels cannot be built")
 
 
+def expand_includes(text: str) -> str:
+    """`text` with each `#include "NAME"` line replaced by `csrc/NAME`
+    (itself expanded, once per translation unit, as `#pragma once` does):
+    one self-contained source, for copies built or compiled elsewhere."""
+    seen = set()
+
+    def inline(m):
+        name = m.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        body = (CSRC / name).read_text().replace("#pragma once\n", "")
+        return re.sub(r'^#include "([^"]+)"\n', inline, body, flags=re.M)
+
+    return re.sub(r'^#include "([^"]+)"\n', inline, text, flags=re.M)
+
+
+def source_text(name: str) -> str:
+    """`csrc/<name>.cu` with its `csrc/` headers inlined."""
+    return expand_includes((CSRC / f"{name}.cu").read_text())
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source_text(name).encode()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

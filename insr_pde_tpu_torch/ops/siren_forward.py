@@ -26,7 +26,7 @@ from . import cuda_build
 
 OMEGA_0 = 30.0
 MAX_WIDTH = 128      # as the TPU kernel's 128 lanes
-MAX_LAYERS = 32      # csrc/siren_forward.cu MAX_LAYERS
+MAX_LAYERS = 32      # csrc/sine_mlp_tile.cuh MAX_LAYERS
 
 Params = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -82,7 +82,12 @@ def check_inputs(params: Params, coords: torch.Tensor,
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("siren_forward")
+    return bind(cuda_build.load("siren_forward"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from
+    `csrc/siren_forward.cu` (or a copy of it)."""
     fn = lib.siren_forward_f32
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -440,7 +440,10 @@ def emulated_library(tmp_path_factory):
     (out / "cooperative_groups.h").write_text("#pragma once\n")
     (out / "advect_fit.cpp").write_text(src)
     lib = out / "libadvect_fit_emu.so"
-    proc = subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared",
+    # -fno-gnu-unique: the emulation's inline globals stay in this library,
+    # not shared with another emulated source loaded in the same process
+    proc = subprocess.run([cxx, "-std=c++20", "-fno-gnu-unique", "-O1",
+                           "-fPIC", "-shared",
                            f"-I{out}", "-o", str(lib), str(out / "advect_fit.cpp"),
                            "-lpthread"], capture_output=True, text=True,
                           timeout=300)

@@ -120,9 +120,24 @@ def test_cgls_stops_where_jax_stops(damp):
                           tol=1e-4, damp=damp, check_every=7)
     assert 5 < int(jinfo["niter"]) < 500
     _check(x, info, jx, jinfo, A, b, JA, jb)
-    np.testing.assert_allclose(float(info["best_phi"]),
-                               float(jinfo["best_phi"]), rtol=1e-3,
-                               atol=1e-9)
+    # best_phi ends at ~2e-8 of phi0 = |b|^2, where the two packages' f32
+    # iterates differ by rounding in the order of the products (phi 7.33e-6
+    # against 7.26e-6 at damp 0): hold sqrt(best_phi), a residual norm, to
+    # the residual bar of _check ...
+    bnorm = float(torch.linalg.norm(b))
+    assert abs(np.sqrt(float(info["best_phi"]))
+               - np.sqrt(float(jinfo["best_phi"]))) <= RES_RTOL * bnorm
+    # ... and each package's best_phi to the f64 phi of its own iterate
+    vals = A.vals.numpy().reshape(A.cols.shape).astype(np.float64)
+    dense = np.zeros((vals.shape[0], A.n_cols))
+    np.add.at(dense, (np.arange(vals.shape[0])[:, None], A.cols.numpy()),
+              vals)
+    b64 = b.numpy().astype(np.float64)
+    for xs, phi in ((x.numpy(), info["best_phi"]),
+                    (np.asarray(jx), jinfo["best_phi"])):
+        xs = xs.astype(np.float64)
+        phi64 = np.sum((dense @ xs - b64) ** 2) + damp ** 2 * np.sum(xs ** 2)
+        np.testing.assert_allclose(float(phi), phi64, rtol=1e-3)
 
 
 @pytest.mark.parametrize("name", ["velocity", "stream"])

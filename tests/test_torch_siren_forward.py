@@ -6,7 +6,13 @@ and against `_forward_reference`, at the JAX pins (300x2 at width 32 with 3
 hidden layers; 517x3 at width 20 with 2 hidden layers and out 1) with atol
 2e-5. The gradient of the autograd.Function matches jax.grad of
 `_forward_reference`. The CUDA kernel itself runs only on the card: its
-case is marked `cuda` and skips here."""
+case is marked `cuda` and skips here. Its source's logic (the row plan and
+tile walk, both rows-per-thread instantiations, the resident weights and
+the two-layer ring, the ragged last tile) is also checked on the CPU, built
+with the host C++ compiler against the emulation of the CUDA runtime of
+`tests/test_torch_siren_vgl.py`."""
+
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +25,9 @@ from insr_pde_tpu.ops.pallas_siren import (_forward_reference,
                                            siren_forward_interpret)
 from insr_pde_tpu_torch.convert import params_from_jax
 from insr_pde_tpu_torch.models.networks import MLP
-from insr_pde_tpu_torch.ops.siren_forward import (siren_forward,
+from insr_pde_tpu_torch.ops.siren_forward import (pack_params, siren_forward,
                                                   siren_forward_reference)
+from test_torch_siren_vgl import host_build
 
 torch.set_num_threads(1)
 
@@ -126,3 +133,66 @@ def test_kernel_matches_plain_version_on_card(cuda_device, shape):
     # 2e-5: the JAX pins' tolerance; width 128: 5e-5 (chip_smoke.py)
     atol = 5e-5 if width > 32 else 2e-5
     assert (out - ref).abs().max().item() <= atol
+
+
+@pytest.fixture(scope="module")
+def emulated_library(tmp_path_factory):
+    lib = host_build("siren_forward", tmp_path_factory.mktemp("emu_siren"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.siren_forward_f32.argtypes = [p, p, p, i, i, p, ctypes.c_float, p]
+    return lib
+
+
+@pytest.mark.parametrize("shape", [
+    (300, 2, 2, 3, 32),     # the fluid net: a row a thread, 5 tiles of 64
+    (517, 3, 1, 2, 20),     # the JAX pin, out 1
+    (33, 2, 1, 1, 2),       # width 2
+    (1000, 2, 1, 2, 64),    # a row a thread, 32 tiles of 32
+    (300, 2, 1, 2, 128),    # 8 rows a thread, every layer resident
+    (300, 2, 2, 5, 128),    # 8 rows a thread, the ring over 7 layers
+])
+def test_cuda_source_matches_plain_version_in_host_emulation(
+        emulated_library, shape):
+    """The kernel's code, run by host threads, against the plain version:
+    2e-5 (the JAX pins), 5e-5 past width 32 (chip_smoke.py). N is no
+    multiple of the tile, and the rows spread over the blocks of 2 SMs take
+    more tiles than blocks, so a block walks several (and the ring wraps
+    from tile to tile; at width 128, 3 tiles of 128 rows); a second run
+    gives the same bits."""
+    n, in_f, out_f, layers, width = shape
+    g = torch.Generator().manual_seed(3)
+    params = MLP(in_f, out_f, layers, width).init(g)
+    x = torch.rand((n, in_f), generator=g) * 2 - 1
+    packed, widths = pack_params(params)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+
+    def run():
+        out = torch.full((n, out_f), float("nan"))
+        assert emulated_library.siren_forward_f32(
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(), n, len(params),
+            c_widths, 30.0, None) == 0
+        return out
+
+    out = run()
+    atol = 5e-5 if width > 32 else 2e-5
+    assert (out - siren_forward_reference(params, x)).abs().max().item() \
+        <= atol
+    assert torch.equal(run(), out)
+
+
+def test_library_hash_covers_the_included_header(tmp_path, monkeypatch):
+    """A source's library is keyed on the source with its `csrc/` headers
+    inlined: an edit of the shared engine header rebuilds both forwards."""
+    from insr_pde_tpu_torch.ops import cuda_build
+    for f in cuda_build.CSRC.iterdir():
+        (tmp_path / f.name).write_text(f.read_text())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = {n: cuda_build.library_path(n)
+              for n in ("siren_forward", "siren_vgl", "block_ell")}
+    header = tmp_path / "sine_mlp_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build.library_path(n) for n in before}
+    assert after["siren_forward"] != before["siren_forward"]
+    assert after["siren_vgl"] != before["siren_vgl"]
+    assert after["block_ell"] == before["block_ell"]
+    assert "// edited" in cuda_build.source_text("siren_forward")

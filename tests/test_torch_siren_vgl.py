@@ -213,16 +213,28 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape):
         torch.testing.assert_close(got.grad, ref, rtol=1e-4, atol=5e-3)
 
 
-# The CUDA runtime as far as csrc/siren_vgl.cu uses it, on the host: a
-# launch runs the grid's blocks one after another, each block's threads at
-# once, with a block barrier and a barrier per warp (the shuffles exchange
-# through a per-block buffer between two of its waits). Shared memory
-# starts as NaN in every block, so a read before a write shows.
+# The CUDA runtime as far as csrc/siren_vgl.cu and csrc/siren_forward.cu
+# (with csrc/sine_mlp_tile.cuh) use it, on the host: a launch runs the grid's
+# blocks one after another, each block's threads at once, with a block
+# barrier and a barrier per warp (the shuffles exchange through a per-block
+# buffer between two of its waits). Shared memory starts as NaN in every
+# block, so a read before a write shows. The card has EMU_SMS SMs, so that
+# a grid of at most one wave walks several tiles. The forward engine's
+# cp.async copies flag the hardware's alignment rules and wait in a queue of
+# their thread: a commit closes the thread's open copies into a group, and
+# async_wait<N> makes the copies of all but the newest N groups, so that a
+# missing or short wait reads NaN or stale shared memory; a thread that ends
+# with a copy still pending is a fault.
+EMU_SMS = 2
 _EMULATION_H = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <deque>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -230,15 +242,21 @@ _EMULATION_H = r"""
 #define __device__
 #define __host__
 #define __shared__
+#define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local uint3_ threadIdx, blockIdx;
 inline uint3_ gridDim, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 74,
+       cudaErrorLaunchFailure = 719,
+       cudaDevAttrMultiProcessorCount = 16,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuBlock {
     std::barrier<> bar;
@@ -266,8 +284,39 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
 template <typename T> inline T __ldg(const T* p) { return *p; }
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
+inline std::atomic<int> emu_fault{0};
+inline cudaError_t cudaGetLastError() { return emu_fault.exchange(0); }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = %(sms)d; return 0; }
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+    *n = 1;
+    return 0;
+}
 inline void sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }
+struct EmuCopy { float* dst; const float* src; unsigned bytes; };
+inline thread_local std::vector<EmuCopy> emu_open;                // not committed
+inline thread_local std::deque<std::vector<EmuCopy>> emu_groups;  // committed
+inline void emu_copy(float* dst, const float* src, unsigned bytes) {
+    if (((reinterpret_cast<std::uintptr_t>(dst) | reinterpret_cast<std::uintptr_t>(src))
+         & (bytes - 1)) != 0)
+        emu_fault = cudaErrorMisalignedAddress;
+    emu_open.push_back({dst, src, bytes});
+}
+inline void async_copy4(float* dst, const float* src) { emu_copy(dst, src, 4); }
+inline void async_copy16(float* dst, const float* src) { emu_copy(dst, src, 16); }
+inline void async_commit() {
+    emu_groups.push_back(std::move(emu_open));
+    emu_open.clear();
+}
+template <int N> inline void async_wait() {
+    for (; emu_groups.size() > static_cast<size_t>(N); emu_groups.pop_front())
+        for (const EmuCopy& c : emu_groups.front()) std::memcpy(c.dst, c.src, c.bytes);
+}
+inline void emu_thread_end() {
+    bool pending = !emu_open.empty();
+    for (const auto& g : emu_groups) pending = pending || !g.empty();
+    if (pending) emu_fault = cudaErrorLaunchFailure;
+}
 template <typename K, typename... A>
 void emu_launch(K kernel, unsigned grid, unsigned threads, size_t smem, A... args) {
     gridDim.x = grid;
@@ -277,48 +326,76 @@ void emu_launch(K kernel, unsigned grid, unsigned threads, size_t smem, A... arg
         emu_block = &block;
         std::vector<std::thread> team;
         for (unsigned t = 0; t < threads; ++t)
-            team.emplace_back([=]() { threadIdx.x = t; blockIdx.x = b; kernel(args...); });
+            team.emplace_back([=]() {
+                threadIdx.x = t;
+                blockIdx.x = b;
+                kernel(args...);
+                emu_thread_end();
+            });
         for (auto& th : team) th.join();
     }
 }
-"""
+""" % {"sms": EMU_SMS}
+
+
+def host_build(name, out, edits=()):
+    """`csrc/<name>.cu` (its headers inlined) built for the host against
+    the emulation above, with the engine's cp.async primitives replaced by
+    the emulation's and each (old, new) of `edits` applied; the loaded
+    library."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ (C++20) to build the CUDA source for the host")
+    src = cuda_build.source_text(name)
+    src, n = re.subn(r"// async copy primitives \{\n.*?// \} async copy primitives\n",
+                     "", src, flags=re.S)
+    assert n == 1
+    src = src.replace("extern __shared__ float4 smem4[];", "")
+    for old, new in edits:
+        assert old in src
+        src = src.replace(old, new)
+    src = re.sub(r"(\w+(?:<\w+>)?)<<<([^,]+),([^,]+),([^,]+),[^>]+>>>\(",
+                 r"emu_launch(\1, \2, \3, \4, ", src)
+    (out / "cuda_runtime.h").write_text(_EMULATION_H)
+    (out / f"{name}.cpp").write_text(src)
+    lib = out / f"lib{name}_emu.so"
+    # -fno-gnu-unique: the emulation's inline globals stay in this library,
+    # not shared with another emulated source loaded in the same process
+    proc = subprocess.run([cxx, "-std=c++20", "-fno-gnu-unique", "-O1",
+                           "-fPIC", "-shared", f"-I{out}", "-o", str(lib),
+                           str(out / f"{name}.cpp"), "-lpthread"],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
 def emulated_library(tmp_path_factory):
     """csrc/siren_vgl.cu built for the host. The backward's grid is capped
     at 2 blocks, so that a block sums the partials of several tiles."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("needs g++ (C++20) to build the CUDA source for the host")
-    src = (cuda_build.CSRC / "siren_vgl.cu").read_text()
-    src = src.replace("extern __shared__ float4 smem4[];", "")
-    src = src.replace("BWD_GRID_MIN = 256", "BWD_GRID_MIN = 2")
-    src = src.replace("PARTIAL_FLOATS = 1 << 21", "PARTIAL_FLOATS = 0")
-    src = re.sub(r"(\w+(?:<\w+>)?)<<<([^,]+),([^,]+),([^,]+),[^>]+>>>\(",
-                 r"emu_launch(\1, \2, \3, \4, ", src)
-    out = tmp_path_factory.mktemp("emu")
-    (out / "cuda_runtime.h").write_text(_EMULATION_H)
-    (out / "siren_vgl.cpp").write_text(src)
-    lib = out / "libsiren_vgl_emu.so"
-    proc = subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared",
-                           f"-I{out}", "-o", str(lib), str(out / "siren_vgl.cpp"),
-                           "-lpthread"], capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return ctypes.CDLL(str(lib))
+    return host_build("siren_vgl", tmp_path_factory.mktemp("emu"),
+                      [("BWD_GRID_MIN = 256", "BWD_GRID_MIN = 2"),
+                       ("PARTIAL_FLOATS = 1 << 21", "PARTIAL_FLOATS = 0")])
 
 
 @pytest.mark.parametrize("shape", [(2, 1, 3, 32, 300), (3, 2, 1, 24, 32),
                                    (1, 1, 2, 20, 70), (2, 1, 2, 128, 21),
-                                   (1, 1, 3, 32, 45), (3, 1, 2, 32, 77)])
+                                   (1, 1, 3, 32, 45), (3, 1, 2, 32, 77),
+                                   (2, 1, 3, 128, 77), (2, 1, 2, 128, 77)])
 def test_cuda_source_matches_plain_versions_in_host_emulation(
         emulated_library, shape):
     """The kernels' code, run by host threads: forward at the pins'
     forward tolerances; backward with random cotangents at the backward's
     and with the L-only cotangents of the pressure loss at theirs. N is no
-    multiple of the tile (32 rows at width 32 and d <= 2, 16 at d = 3, 8 at
-    width 128); a second backward gives the same bits."""
+    multiple of the backward's tile (32 rows at width 32 and d <= 2, 16 at
+    d = 3, 8 at width 128) nor of the forward's, whose rows spread over the
+    blocks of EMU_SMS SMs: at width 32 one row a thread at two blocks per
+    SM (the 300 rows take 5 tiles of 64 on a grid of 2, so a block walks
+    several), at width 128 two rows a thread with every layer resident (2
+    hidden layers; 2 tiles of 12 rows at 21 rows, 3 tiles of 32 at
+    77) or through the two-buffer weight ring (3 hidden layers: 3 tiles of
+    32 rows, 5 layers, so the ring wraps from tile to tile); a second
+    forward and backward give the same bits."""
     d, m, layers, width, n = shape
     lib = emulated_library
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -340,6 +417,11 @@ def test_cuda_source_matches_plain_versions_in_host_emulation(
     for got, r, rtol, atol in zip(outs, ref, (1e-5, 1e-5, 1e-4),
                                   (1e-5, 1e-4, 2e-3)):
         torch.testing.assert_close(got, r, rtol=rtol, atol=atol)
+    again = [torch.full_like(o, float("nan")) for o in outs]
+    assert lib.siren_vgl_forward_f32(
+        x.data_ptr(), packed.data_ptr(), *(o.data_ptr() for o in again), n, d,
+        layers + 2, c_widths, 30.0, None) == 0
+    assert all(torch.equal(a, b) for a, b in zip(again, outs))
 
     blocks = lib.siren_vgl_backward_blocks(n, d, layers + 2, c_widths)
     assert blocks in (1, 2)
@@ -372,9 +454,11 @@ def test_cuda_source_matches_plain_versions_in_host_emulation(
 def test_phase_probe_stamps_the_backward():
     """`kernel_phases` finds the backward's `// phase:` marks (recompute,
     the layer inputs, the weight gradients, G W^T with the reverse rules)
-    and puts its prelude after the source's include."""
+    in the source with its headers inlined, as it builds it (the card's
+    constants, SMEM_LIMIT among them, are the header's), and puts its
+    prelude after the source's includes."""
     from insr_pde_tpu_torch import kernel_phases
-    text = (cuda_build.CSRC / "siren_vgl.cu").read_text()
+    text = cuda_build.source_text("siren_vgl")
     stamped, names = kernel_phases.stamped_source(text)
     assert names == ["recompute", "inputs", "wgrad", "gwt"]
     assert stamped.count("PHASE_SETUP();") == stamped.count("PHASE_END();") == 1
@@ -383,20 +467,47 @@ def test_phase_probe_stamps_the_backward():
     assert "SMEM_LIMIT = 232448 - 256;" in stamped
 
 
+@pytest.mark.parametrize("name", ["siren_vgl", "siren_forward"])
+def test_phase_probe_stamps_the_forwards(name):
+    """`kernel_phases` finds the forward engine's `// phase[fwd]:` marks in
+    each forward source with its header inlined (the first copies issued,
+    a later tile's inputs, the weights' arrival and barrier, the hidden
+    products, the sine epilogue, the last layer and its store), puts its prelude ahead of the engine, and leaves
+    the backward's marks as comments."""
+    from insr_pde_tpu_torch import kernel_phases
+    text = cuda_build.source_text(name)
+    assert '#include "' not in text
+    stamped, names = kernel_phases.stamped_source(text, "fwd")
+    assert names == ["issue", "inputs", "staging", "products", "epilogue",
+                     "last", "store"]
+    assert stamped.count("PHASE_SETUP();") == stamped.count("PHASE_END();") == 1
+    assert stamped.index("__device__ long long g_phase_acc") \
+        < stamped.index("forward_tiles")
+    assert "SMEM_LIMIT = 232448 - 256;" in stamped
+    assert not re.search(r"^\s*// phase\[fwd\]:", stamped, flags=re.M)
+    assert bool(re.search(r"^\s*// phase: recompute", stamped, flags=re.M)) \
+        == (name == "siren_vgl")
+    with pytest.raises(ValueError, match=r"phase\[fwd\]: setup"):
+        kernel_phases.stamped_source(
+            (cuda_build.CSRC / "advect_fit.cu").read_text(), "fwd")
+
+
 @pytest.mark.parametrize("kernel,name", [
     (k, n) for k, vs in sorted(VARIANTS.items()) for n in sorted(vs)])
 def test_kernel_variants_apply_to_the_committed_sources(kernel, name):
     """Every measured design of `kernel_variants` still patches its
-    committed source (each replacement exactly once), and a variant of a
-    source with phase marks keeps them for the probe."""
+    committed source with its headers inlined (each replacement exactly
+    once), and a variant of a source with phase marks keeps them for the
+    probe."""
     from insr_pde_tpu_torch import kernel_phases, kernel_variants
-    text = (cuda_build.CSRC / f"{kernel}.cu").read_text()
+    text = cuda_build.source_text(kernel)
     out = kernel_variants.patched(kernel, name, text)
     assert out != text
     for _, new in kernel_variants.VARIANTS[kernel][name]:
         assert new in out
-    if "// phase: setup" in text:
-        assert kernel_phases.stamped_source(out)[1] \
-            == kernel_phases.stamped_source(text)[1]
+    for tag in (None, "fwd"):
+        if kernel_phases.has_marks(text, tag):
+            assert sorted(kernel_phases.stamped_source(out, tag)[1]) \
+                == sorted(kernel_phases.stamped_source(text, tag)[1])
     with pytest.raises(ValueError, match="occurs 0 times"):
         kernel_variants.patched(kernel, name, "int main() {}\n")
