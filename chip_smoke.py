@@ -9,7 +9,11 @@ result line):
   2. build: every CUDA kernel of the port, one nvcc per source, in parallel;
   3. kernels against their plain PyTorch versions on the card, at the JAX
      pins and at the main path's shapes, with max abs error and median
-     times: the fused SIREN forward, and the fused value+gradient+Laplacian
+     times: the fused SIREN forward (also at elasticity's shapes: 3->128
+     (3 hidden) ->3 at 43,937 rows, the lucy scene's history nets on 8,000
+     volume points + 35,937 vertices; 2->68->2 at 20,000 rows, the 2D
+     collide scene; 3->66->3 at 43,937 rows, the bunny and spot widths;
+     within 5e-5), and the fused value+gradient+Laplacian
      forward and backward (random cotangents on all three outputs, and the
      L-only cotangents of the pressure loss); two runs of each forward, and
      of the backward for each cotangent kind, must give the same bits at
@@ -65,8 +69,30 @@ result line):
      the gathers from L2 cost);
  12. trace: one 200-iteration CGLS chunk of each vortex path's system
      under torch.profiler (outside the paths' counts);
- 13. one JSON line of kernel records, the nvidia-smi line, and the last
-     line {"ok": true, "device": {...}}.
+ 13. elasticity 3D path: `python -m insr_pde_tpu_torch elasticity` with the
+     flags of scripts/elasticity3Dlucy.sh (SIREN 3x128, -sr 20, -vr 10000,
+     the published lr, dt and energies) on the lucy-scale stand-in
+     (`geometry/procedural.statue_tet_mesh(32)`: 35,937 vertices, 163,840
+     tets, written by the port's `write_medit`), cut to T=4 and ELA_ITERS
+     Adam iterations per fit, in-process, counters set to 0 just before and
+     read just after; checks finite fields and points, the outputs of every
+     t, at least two siren_forward launches per Adam iteration of the step
+     fits, the centroid's fall, and z_min and z_mean per t against the JAX
+     package's runs of the same cut (mean of 6 seeds, bar 2x their spread
+     at that t); at t=4 the drop reaches the plane z = -2, so the last fit
+     holds the collision term against JAX's too;
+ 14. elasticity 2D path: the flags of scripts/elasticity2Dcollide.sh
+     (SIREN 3x68, -sr 100, sphere collision) cut the same way; checks the
+     centroid y's fall after the impulse, and the centroid y and the circle
+     penetration per t against the JAX runs in the same way;
+ 15. recap: `python -m insr_pde_tpu_torch.recap elasticity` on the 3D
+     path's run directory; every re-rendered tNNN_deformation.ply equals
+     the training run's byte for byte;
+ 16. trace: the elasticity step phase of both paths under torch.profiler
+     (outside the paths' counts);
+ 17. one JSON line of kernel records, the nvidia-smi line, and the last
+     line {"ok": true, "device": {...}}. siren_forward's record is the lucy
+     shape, its launches those of the elasticity 3D path.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -182,6 +208,61 @@ BLOCK_ELL_BARS = {"block_ell_mv": 1e-5, "block_ell_rmv": 1e-4}
 ELL_SHAPE = (35600, 768, 192000)
 # slots per chunk of the rmv plan, timed beside the default
 RMV_CHUNK_SWEEP = (64, 128, 256, 512, 1024)
+
+# The elasticity paths: scripts/elasticity3Dlucy.sh (SIREN 3x128, -sr 20 =
+# 8,000 volume points + every vertex per Adam iteration, -vr 10000) on the
+# lucy-scale stand-in, and scripts/elasticity2Dcollide.sh (SIREN 3x68, -sr
+# 100 = 10,000 random + 10,000 grid points; the init fit at the reference's
+# 500^2 + 500^2), each cut to T=ELA_STEPS and ELA_ITERS Adam iterations per
+# fit (the scripts run T=20 at up to 20,000). Widths, point counts, lr, dt
+# and energies as published. At T=4 the 3D drop reaches the plane at z = -2,
+# so its collision term is at work in the last fit. The JAX reference runs
+# (tests/elasticity_reference_jax.py) take these lists as they are.
+ELA_STEPS = 4
+ELA_ITERS = 300
+ELA_MESH_N = 32          # statue_tet_mesh(32): 35,937 vertices, 163,840 tets
+ELA_PLANE = -2.0
+ELA_3D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
+               "128", "-sr", "20", "-vr", "10000", "-T", str(ELA_STEPS),
+               "--dt", "0.1", "--max_n_iters", str(ELA_ITERS), "--lr",
+               "1e-4", "--dim", "3", "--energy", "arap", "kinematics",
+               "collision", "external", "volume", "--ratio_volume", "1e3",
+               "--ratio_arap", "1e3", "--ratio_collide", "1e6",
+               "--ratio_kinematics", "1e0", "-f_ext_x", "0", "-f_ext_y", "0",
+               "-f_ext_z=-2e1", "-T_ext", "10", "--plane_height",
+               str(ELA_PLANE), "--use_mesh", "1", "--early_stop",
+               "--no_backup"]
+ELA_2D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
+               "68", "-sr", "100", "-vr", "100", "-T", str(ELA_STEPS),
+               "--dt", "0.1", "--max_n_iters", str(ELA_ITERS), "--lr",
+               "1e-5", "--dim", "2", "--energy", "arap", "kinematics",
+               "collision_sphere", "external", "volume", "--ratio_volume",
+               "1e3", "--ratio_arap", "2e1", "--ratio_collide", "1e4",
+               "--ratio_kinematics", "1e1", "-f_ext_x", "0", "-f_ext_y=-2e2",
+               "-T_ext", "2", "--early_stop", "--no_backup"]
+# The JAX package at the same cut on a CPU, seeds 0-5
+# (`python tests/elasticity_reference_jax.py 3d|2d`, PERF.md section 6):
+# per quantity and t = 0..ELA_STEPS, the mean over the seeds and their
+# spread (max - min). The port's value at each t must lie within 2x that
+# t's spread of that t's mean. The 3D fit at t=4, the first in contact
+# with the plane, spreads ~25x wider over the seeds than those before it.
+ELA_3D_JAX = {
+    "z_min": ((-1.161975, -1.255353, -1.454716, -1.75446, -1.968614),
+              (0.003604, 0.003179, 0.003423, 0.003427, 0.08608)),
+    "z_mean": ((-0.08441902, -0.1841616, -0.3839114, -0.6836644,
+                -0.8970536),
+               (0.003198, 0.003364, 0.003533, 0.003703, 0.08871)),
+}
+ELA_2D_JAX = {
+    "centroid_y": ((-2.931183e-05, -0.08543724, -0.2396635, -0.3653672,
+                    -0.4647207),
+                   (8.682e-05, 0.006354, 0.01823, 0.02926, 0.03935)),
+    "penetration": ((0, 0.009386999, 0.01569503, 0.01011736, 0.007997869),
+                    (0, 0.01137, 0.004588, 0.003203, 0.001631)),
+}
+# the width-128 bar of phase_kernels, also held by the elasticity paths'
+# last output against the plain forward of the final field
+ELA_SIREN_ATOL = 5e-5
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -316,8 +397,10 @@ def phase_build():
 
 
 def phase_kernels():
-    """The fused SIREN kernel against its plain version. Returns the record
-    at the main path's shape (the -vr 128 output grid)."""
+    """The fused SIREN kernel against its plain version at the JAX pins,
+    the fluid paths' shapes and elasticity's: two runs the same bits, within
+    each case's atol; median times and the bound. Returns the record at the
+    lucy scene's shape."""
     import torch
     from insr_pde_tpu_torch.models.networks import MLP
     from insr_pde_tpu_torch.ops.sampling import sample_uniform
@@ -328,8 +411,9 @@ def phase_kernels():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def rand_coords(n, d):
-        return torch.rand((n, d), generator=gen, device=dev) * 2.0 - 1.0
+    def rand_coords(n, d, half=1.0):
+        u = torch.rand((n, d), generator=gen, device=dev)
+        return (u * 2.0 - 1.0) * half
 
     grid128 = sample_uniform(128, 2, device=dev).contiguous()
     grid500 = sample_uniform(500, 2, device=dev).contiguous()
@@ -337,15 +421,24 @@ def phase_kernels():
     # (tests/test_pallas_siren.py). Width 128 over 5 hidden layers: 128-term
     # f32 sums in another order than the plain version's matmul, each
     # layer's rounding (~1e-6) scaled by up to omega = 30 through the next
-    # sine; 5e-5 keeps a factor ~10 over that estimate.
+    # sine; 5e-5 keeps a factor ~10 over that estimate. Elasticity's shapes
+    # (coords in [-2, 2]): the lucy scene's history nets (8,000 volume
+    # points + 35,937 vertices), the 2D collide scene's (10,000 + 10,000),
+    # the bunny and spot widths.
     cases = [
         ("pin_300x2_w32", MLP(2, 2, 3, 32), rand_coords(300, 2), 2e-5),
         ("pin_517x3_w20", MLP(3, 1, 2, 20), rand_coords(517, 3), 2e-5),
         ("fluid_vr128_16384", MLP(2, 2, 3, 32), grid128, 2e-5),
         ("fluid_vr500_250000", MLP(2, 2, 3, 32), grid500, 2e-5),
         ("w128_l5_16384", MLP(2, 2, 5, 128), rand_coords(16384, 2), 5e-5),
+        ("lucy_3x128_43937", MLP(3, 3, 3, 128), rand_coords(43937, 3, 2.0),
+         ELA_SIREN_ATOL),
+        ("collide_2x68_20000", MLP(2, 2, 3, 68), rand_coords(20000, 2, 2.0),
+         ELA_SIREN_ATOL),
+        ("spot_3x66_43937", MLP(3, 3, 3, 66), rand_coords(43937, 3, 2.0),
+         ELA_SIREN_ATOL),
     ]
-    main_record = None
+    record = None
     for name, net, x, atol in cases:
         params = net.init(gen)
         out = siren_forward(params, x)
@@ -372,10 +465,10 @@ def phase_kernels():
               f"the same bits; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
               f"ms ({bound_by})", flush=True)
-        if name == "fluid_vr128_16384":
-            main_record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by}
-    return main_record
+        if name == "lucy_3x128_43937":
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    return record
 
 
 def phase_vgl_kernels():
@@ -1313,6 +1406,200 @@ def phase_vortex_trace(models, iters: int = 200):
                           for k, (_, ms) in top), flush=True)
 
 
+def _ela_outputs(tag, exp_dir, n_points, dim):
+    """Every t's PLY and .npy points (finite, (n_points, dim)) and the last
+    checkpoint; returns the points per t."""
+    import numpy as np
+    results = os.path.join(exp_dir, "results")
+    pts = []
+    for t in range(ELA_STEPS + 1):
+        stem = os.path.join(results, f"t{t:03d}_deformation")
+        for suffix in (".ply", ".npy"):
+            if not os.path.exists(stem + suffix):
+                raise RuntimeError(f"[{tag}] missing output {stem}{suffix}")
+        p = np.load(stem + ".npy")
+        if p.shape != (n_points, dim) or not np.isfinite(p).all():
+            raise RuntimeError(f"[{tag}] t{t:03d}: points {p.shape} (expected "
+                               f"{(n_points, dim)}) or non-finite values")
+        pts.append(p)
+    ckpt = os.path.join(exp_dir, "model", f"ckpt_step_t{ELA_STEPS:03d}.npz")
+    if not os.path.exists(ckpt):
+        raise RuntimeError(f"[{tag}] missing checkpoint {ckpt}")
+    return pts
+
+
+def _ela_stats(kind, exp_dir):
+    """Per quantity, its value at every t, from the run's PLY files by the
+    yardstick the JAX runs were read with (`elasticity_stats`)."""
+    from insr_pde_tpu_torch.elasticity_stats import run_stats
+    steps = run_stats(kind, exp_dir)
+    return {key: [step[key] for step in steps] for key in steps[0]}
+
+
+def _ela_against_jax(tag, stats, jax_ref):
+    """Each quantity at every t within 2x that t's JAX seeds' spread of
+    their mean."""
+    for key, (means, spreads) in jax_ref.items():
+        for t, (got, mean, spread) in enumerate(zip(stats[key], means,
+                                                    spreads)):
+            bar = 2.0 * spread
+            ok = abs(got - mean) <= bar
+            print(f"[{tag}] t={t} {key} {got:.6f}; JAX mean {mean:.6f}, "
+                  f"|diff| {abs(got - mean):.3e} (bar {bar:.3e}: 2x the "
+                  f"JAX seeds' spread at this t)", flush=True)
+            if not ok:
+                raise RuntimeError(f"[{tag}] t={t} {key} misses the JAX bar")
+
+
+def _ela_run(tag, args, dim):
+    """One elasticity run through the entry point; checks its fields,
+    outputs, the kernel's launches (>= 2 per Adam iteration of the step
+    fits, the history nets) and that the last output went through the
+    kernel. Returns (launches, model, exp_dir)."""
+    import numpy as np
+    from insr_pde_tpu_torch.ops.siren_forward import siren_forward_reference
+    counts, model, exp_dir, wall = _run_entry(tag, args)
+    pts = _ela_outputs(tag, exp_dir, model.sample_vis.shape[0], dim)
+    x = model.sample_vis
+    plain = (siren_forward_reference(model.fields["deformation"], x)
+             + x).cpu().numpy()
+    err = float(np.abs(pts[-1] - plain).max())
+    print(f"[{tag}] t={ELA_STEPS} output ({x.shape[0]} points) vs plain "
+          f"forward of the final field: max abs err {err:.3e}")
+    if not err < ELA_SIREN_ATOL:
+        raise RuntimeError(f"[{tag}] kernel output disagrees with the plain "
+                           "forward of the final field")
+    step_iters = sum(r["n_iters"] for r in model.phase_timings
+                     if r["tag"] == "solve_deformation")
+    print(f"[{tag}] wall {wall:.2f}s for T={ELA_STEPS} (init + {ELA_STEPS} "
+          f"steps, up to {ELA_ITERS} Adam iterations per fit)")
+    for rec in model.phase_timings:
+        print(f"[{tag}] t={rec['timestep']} {rec['tag']:18s} "
+              f"{rec['n_iters']} iters {rec['sec']:.3f}s "
+              f"{rec['sec'] / max(rec['n_iters'], 1) * 1e3:.4f} ms/iter")
+    _check_launches(tag, counts, {"siren_forward": 2 * step_iters})
+    return counts, model, exp_dir
+
+
+def phase_elasticity_3d():
+    """The lucy scene (scripts/elasticity3Dlucy.sh) on the lucy-scale
+    stand-in, cut to T=ELA_STEPS and ELA_ITERS Adam iterations per fit (the
+    only cuts; widths, -sr, -vr, lr, dt and energies as published)."""
+    from insr_pde_tpu_torch.geometry import statue_tet_mesh, write_medit
+    mesh = os.path.join(REPO, "checkpoints", "chip_smoke", "statue.mesh")
+    os.makedirs(os.path.dirname(mesh), exist_ok=True)
+    V, T = statue_tet_mesh(ELA_MESH_N)
+    write_medit(mesh, V, {"tetra": T})
+    counts, model, exp_dir = _ela_run(
+        "elasticity3D", ELA_3D_ARGS + ["--mesh_path", mesh], 3)
+    stats = _ela_stats("3d", exp_dir)
+    for t in range(1, ELA_STEPS + 1):
+        if not stats["z_mean"][t] < stats["z_mean"][t - 1]:
+            raise RuntimeError(f"[elasticity3D] the centroid's z did not "
+                               f"fall at t={t}: {stats['z_mean']}")
+    print(f"[elasticity3D] {len(V)} vertices, {len(T)} tets; centroid z per "
+          f"t {[round(z, 6) for z in stats['z_mean']]} (falls at every t)")
+    # The drop alone (steps of 0.1, 0.2, 0.3, 0.4) takes z_min to about
+    # -2.15 at t=4; the plane holds it above -2.05 (the JAX package's six
+    # seeds: -1.998 to -1.912).
+    z_end = stats["z_min"][-1]
+    if not z_end >= ELA_PLANE - 0.05:
+        raise RuntimeError(f"[elasticity3D] z_min {z_end:.6f} at t="
+                           f"{ELA_STEPS} is more than 0.05 below the plane z "
+                           f"= {ELA_PLANE}: the collision term did not hold")
+    print(f"[elasticity3D] t={ELA_STEPS} z_min {z_end:.6f}: the plane z = "
+          f"{ELA_PLANE} holds the drop")
+    _ela_against_jax("elasticity3D", stats, ELA_3D_JAX)
+    return counts, model, exp_dir
+
+
+def phase_elasticity_2d():
+    """The 2D collide scene (scripts/elasticity2Dcollide.sh), cut in the
+    same way."""
+    counts, model, exp_dir = _ela_run("elasticity2D", ELA_2D_ARGS, 2)
+    stats = _ela_stats("2d", exp_dir)
+    y = stats["centroid_y"]
+    if not all(y[t] < y[0] for t in range(1, ELA_STEPS + 1)):
+        raise RuntimeError(f"[elasticity2D] the centroid's y did not fall "
+                           f"after the impulse: {y}")
+    print(f"[elasticity2D] centroid y per t {[round(v, 6) for v in y]} (below "
+          f"t=0 after the impulse); circle penetration per t "
+          f"{[round(v, 6) for v in stats['penetration']]}")
+    _ela_against_jax("elasticity2D", stats, ELA_2D_JAX)
+    return counts, model
+
+
+def phase_recap(exp_dir):
+    """`python -m insr_pde_tpu_torch.recap elasticity` on the 3D path's run
+    directory at its -vr: every re-rendered PLY equals the training run's
+    byte for byte (fixed-seed output points, the kernel's bits)."""
+    from insr_pde_tpu_torch.recap import main as recap_main
+    proj_dir, tag = os.path.split(exp_dir)
+    shutil.rmtree(os.path.join(exp_dir, "recap"), ignore_errors=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        recap_main(["elasticity", "--proj_dir", proj_dir, "--tag", tag,
+                    "-vr", "10000"])
+    for t in range(ELA_STEPS + 1):
+        name = f"t{t:03d}_deformation.ply"
+        with open(os.path.join(exp_dir, "results", name), "rb") as f:
+            ref = f.read()
+        path = os.path.join(exp_dir, "recap", name)
+        if not os.path.exists(path):
+            raise RuntimeError(f"[recap] missing {path}")
+        with open(path, "rb") as f:
+            if f.read() != ref:
+                raise RuntimeError(f"[recap] {name} differs from the "
+                                   "training run's")
+    print(f"[recap] {ELA_STEPS + 1} PLY files re-rendered from the "
+          "checkpoints, each byte-equal to the training run's", flush=True)
+
+
+def phase_elasticity_trace(models, iters: int = 30):
+    """Device busy share of the elasticity step phase of each path: one
+    more fit of `iters` Adam iterations from the final fields (the history
+    nets the t-1 and t-2 fields, the external force on), under
+    torch.profiler, with the same fit's wall time without it beside."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insr_pde_tpu_torch.models.solver import Solver
+    from insr_pde_tpu_torch.phase_trace import device_summary
+    for tag, model in models.items():
+        solver = Solver(model._deformation_loss, model._step_points,
+                        lr=model.cfg.lr, max_n_iters=iters, chunk_size=iters,
+                        early_stop=False)
+        params = model.fields["deformation"]
+        aux = {"prev": model.fields["deformation_prev"],
+               "prev_prev": model.fields["deformation_prev_prev"],
+               "external": True}
+        solver.fit(params, aux)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        solver.fit(params, aux)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tic) / iters * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tic = time.perf_counter()
+            solver.fit(params, aux)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - tic) / iters * 1e3
+        events, busy_ms, by_name = device_summary(prof, iters)
+        if not events:
+            print(f"[trace] {tag} solve_deformation: not measured (the "
+                  f"profiler recorded no device events); {plain_ms:.4f} "
+                  "ms/iter without it")
+            continue
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+        print(f"[trace] {tag} solve_deformation: {events:.2f} device "
+              f"events/iter, device busy {busy_ms:.5f} ms/iter of "
+              f"{wall_ms:.5f} ms/iter wall under the profiler ({plain_ms:.5f}"
+              f" without): busy share {busy_ms / wall_ms:.3f} (of the "
+              f"unprofiled wall {busy_ms / plain_ms:.3f}); largest: "
+              + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
+                          for k, (_, ms) in top), flush=True)
+
+
 def _timed(name, fn, *args):
     tic = time.perf_counter()
     out = fn(*args)
@@ -1327,8 +1614,9 @@ def main() -> int:
     from insr_pde_tpu_torch.ops.precision import set_full_precision
     set_full_precision()
     _timed("build", phase_build)
-    records = {"siren_forward": _timed("siren_forward kernel", phase_kernels)}
-    records.update(_timed("vgl kernels", phase_vgl_kernels))
+    siren_record = _timed("siren_forward kernel", phase_kernels)
+    records = _timed("vgl kernels", phase_vgl_kernels)
+    records["siren_forward"] = siren_record
     _timed("pressure program", phase_pressure_program)
     records["advect_fit"] = _timed("advect_fit kernel", phase_advect_kernel)
     counts, split_model = _timed("main path", phase_main_path)
@@ -1342,11 +1630,18 @@ def main() -> int:
                           channel_model))
     _timed("vortex trace", phase_vortex_trace,
            {"vortex_default": default_model, "vortex_channel": channel_model})
-    # each kernel's launches from the run of its own path: the fluid split
-    # main path, the advection path for advect_fit, the vortex channel path
-    # for the block-ELL pair
-    launches = {**counts, "advect_fit": adv_counts["advect_fit"],
-                **vortex_counts}
+    ela_counts, ela3_model, ela3_dir = _timed("elasticity 3D path",
+                                              phase_elasticity_3d)
+    _, ela2_model = _timed("elasticity 2D path", phase_elasticity_2d)
+    _timed("recap", phase_recap, ela3_dir)
+    _timed("elasticity trace", phase_elasticity_trace,
+           {"elasticity3D": ela3_model, "elasticity2D": ela2_model})
+    # each kernel's launches from the run of its own path: the elasticity
+    # 3D path for siren_forward (its record is the lucy shape), the fluid
+    # split main path for the vgl pair, the advection path for advect_fit,
+    # the vortex channel path for the block-ELL pair
+    launches = {**counts, "siren_forward": ela_counts["siren_forward"],
+                "advect_fit": adv_counts["advect_fit"], **vortex_counts}
     sources = {
         "siren_forward": ("insr_pde_tpu_torch/csrc/siren_forward.cu",
                           "insr_pde_tpu/ops/pallas_siren.py:38"),

@@ -1,7 +1,7 @@
 """Training entry point of the port (counterpart of the repo's `main.py`).
 
-    python -m insr_pde_tpu_torch {fluid,advection} <the flags of main.py>
-        [--device cpu]
+    python -m insr_pde_tpu_torch {fluid,advection,elasticity} <the flags of
+        main.py> [--device cpu]
     python -m insr_pde_tpu_torch vortex <the flags of starterL.py>
         [--device cpu]
 
@@ -28,9 +28,10 @@ def build_model(cfg):
     if cfg.pde == "advection":
         from .models.advection import Advection1DModel
         return Advection1DModel(cfg)
-    raise NotImplementedError(
-        f"pde={cfg.pde} is not ported yet (ROADMAP.md Queue 1 "
-        "'Elasticity')")
+    if cfg.pde == "elasticity":
+        from .models.elasticity import ElasticityModel
+        return ElasticityModel(cfg)
+    raise NotImplementedError(f"pde={cfg.pde}")
 
 
 def main(argv=None):
@@ -41,7 +42,8 @@ def main(argv=None):
         return vortex_main(argv[1:])
     cfg = parse_args(argv, phase="train")
     print(cfg)
-    # raises on an unported pde or a missing card before any IO
+    # raises on an unported option, a missing mesh or a missing card
+    # before any IO
     model = build_model(cfg)
     cfg.setup_dirs()
 

@@ -112,7 +112,9 @@ class Config:
     ratio_collide: float = 1e0
     ratio_kinematics: float = 1e0
     use_mesh: bool = False
-    mesh_path: str = "./insr_pde_tpu/data/woody.obj"
+    # relative to the working directory, as the reference's scripts name
+    # their meshes (./data/<name>.mesh); read only with --use_mesh 1
+    mesh_path: str = "./data/woody.obj"
     external_force_timesteps: int = 5
     external_force_x: float = 0.0
     external_force_y: float = 0.0
@@ -309,8 +311,7 @@ def parse_args(argv=None, phase: str = "train") -> Config:
     p_ela.add_argument("--ratio_collide", type=float, default=1e0)
     p_ela.add_argument("--ratio_kinematics", type=float, default=1e0)
     p_ela.add_argument("--use_mesh", type=int, default=0)
-    p_ela.add_argument("--mesh_path", type=str,
-                       default="./insr_pde_tpu/data/woody.obj")
+    p_ela.add_argument("--mesh_path", type=str, default="./data/woody.obj")
     p_ela.add_argument("-T_ext", "--external_force_timesteps", type=int, default=5)
     p_ela.add_argument("-f_ext_x", "--external_force_x", type=float, default=0.0)
     p_ela.add_argument("-f_ext_y", "--external_force_y", type=float, default=0.0)

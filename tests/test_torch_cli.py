@@ -1,11 +1,11 @@
 """PyTorch port, entry points and package rules: `python -m insr_pde_tpu_torch
 fluid --device cpu` writes the JAX package's outputs with every fluid
-timestep option, and so does `advection`; a merged2 run resumes its trapezoidal chain from a
-checkpoint; `python -m insr_pde_tpu_torch vortex` (default and `--preset
+timestep option, and so do `advection` and `elasticity`; a merged2 run
+resumes its trapezoidal chain from a checkpoint; `python -m insr_pde_tpu_torch vortex` (default and `--preset
 channel`) solves, saves, resumes and writes its field;
 `python -m insr_pde_tpu_torch.compare_fluid_tg` reports the
-Taylor-Green golden; the unported PDEs, networks and vortex options and a
-missing card raise; no module of the port (nor chip_smoke.py) imports JAX or
+Taylor-Green golden; the unported networks and vortex options and a missing
+card raise; no module of the port (nor chip_smoke.py) imports JAX or
 the JAX package."""
 
 import json
@@ -154,12 +154,35 @@ def test_compare_fluid_tg_reports_every_timestep(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["advection", "--network", "hashgrid"], ["elasticity"],
+    ["advection", "--network", "hashgrid"],
     ["fluid", "--network", "hashgrid"]])
 def test_unported_paths_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(extra + TINY + ["--proj_dir", str(tmp_path)])
     assert not (tmp_path / "run").exists()
+
+
+def test_cli_elasticity_writes_outputs(tmp_path):
+    """`python -m insr_pde_tpu_torch elasticity --device cpu` (the 2D box
+    scene's defaults at a tiny size): the per-step points, checkpoints and
+    the solve phase's log."""
+    model = cli.main(["elasticity", "--device", "cpu", "--num_hidden_layers",
+                      "2", "--hidden_features", "8", "-sr", "6",
+                      "--sample_resolution_init", "6", "-vr", "6", "-T", "1",
+                      "--max_n_iters", "20", "--chunk_size", "10",
+                      "--no_backup", "--proj_dir", str(tmp_path), "--tag",
+                      "ela"])
+    exp = tmp_path / "ela"
+    for rel in ("results/t001_deformation.ply",
+                "results/t001_deformation.npy", "model/ckpt_step_t001.npz",
+                "config.json", "timings.jsonl"):
+        assert (exp / rel).exists(), rel
+    pts = np.load(exp / "results/t001_deformation.npy")
+    assert pts.shape == (36 + 12, 2) and np.isfinite(pts).all()
+    with open(exp / "log/t001/scalars.jsonl") as f:
+        assert {json.loads(line)["tag"] for line in f} == {
+            "solve_deformation"}
+    assert model.energy == ["arap", "kinematics", "external", "constraint"]
 
 
 def test_cuda_without_card_raises(monkeypatch, tmp_path):
@@ -170,6 +193,9 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["vortex", *VORTEX[3:], "--output_path", str(tmp_path)])
     assert not (tmp_path / "field.npy").exists()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["elasticity", "--proj_dir", str(tmp_path)])
+    assert not (tmp_path / "run").exists()
 
 
 VORTEX = ["vortex", "--device", "cpu", "--collocation", "40",
@@ -252,10 +278,13 @@ def test_port_imports_no_jax():
         "assert 'insr_pde_tpu_torch.models.advection' in names\n"
         "assert 'insr_pde_tpu_torch.ops.advect_fit' in names\n"
         "for n in ('ops.knn', 'ops.block_ell', 'ops.linalg', 'models.rbf',\n"
-        "          'models.vortex', 'starterL'):\n"
+        "          'models.vortex', 'starterL', 'ops.svd', 'geometry',\n"
+        "          'geometry.mesh_io', 'geometry.mesh_ops',\n"
+        "          'geometry.procedural', 'models.elast_losses',\n"
+        "          'models.elasticity', 'utils.io', 'recap'):\n"
         "    assert 'insr_pde_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip()) >= 21
+    assert int(proc.stdout.strip()) >= 30

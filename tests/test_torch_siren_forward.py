@@ -118,7 +118,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(300, 2, 2, 3, 32), (517, 3, 1, 2, 20),
                                    (16384, 2, 2, 3, 32),
-                                   (4099, 2, 2, 5, 128)])
+                                   (4099, 2, 2, 5, 128),
+                                   (43937, 3, 3, 3, 128),
+                                   (20000, 2, 2, 3, 68),
+                                   (43937, 3, 3, 3, 66)])
 def test_kernel_matches_plain_version_on_card(cuda_device, shape):
     n, in_f, out_f, layers, width = shape
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,6 +153,11 @@ def emulated_library(tmp_path_factory):
     (1000, 2, 1, 2, 64),    # a row a thread, 32 tiles of 32
     (300, 2, 1, 2, 128),    # 8 rows a thread, every layer resident
     (300, 2, 2, 5, 128),    # 8 rows a thread, the ring over 7 layers
+    # elasticity's nets: rows of 2, 3, 66 and 68 floats, no 16-byte
+    # multiples; 3 -> 128 -> 3 with three hidden layers (the lucy scene)
+    (700, 3, 3, 3, 128),
+    (500, 2, 2, 3, 68),     # the 2D collide scene
+    (700, 3, 3, 3, 66),     # the bunny and spot scenes
 ])
 def test_cuda_source_matches_plain_version_in_host_emulation(
         emulated_library, shape):
