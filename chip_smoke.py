@@ -90,7 +90,35 @@ result line):
      the training run's byte for byte;
  16. trace: the elasticity step phase of both paths under torch.profiler
      (outside the paths' counts);
- 17. one JSON line of kernel records, the nvidia-smi line, and the last
+ 17. vortex cg path: `vortex --solver cg` at starterL.py's defaults cut to
+     2 Picard iterations of 100 CG iterations (batched CG on the explicit
+     normal equations), counters set to 0 just before and read just after;
+     checks each Picard iteration's residual against the JAX package's run
+     on the same draws (PAIRED_RTOL), its CG count equal to JAX's, and at
+     least two mv and two rmv launches per CG iteration;
+ 18. vortex train paths: `vortex --mode train` (200 Adam iterations, lr
+     0.1), then `--formulation stream --mode train`; checks the loss at
+     iterations 1 and 200 against the JAX package's run on the same draws
+     and that it falls;
+ 19. vortex flags: `--preset channel --picard_iters 1` plain, with
+     `--rmv_gather` and with `--packed_vals` (the JAX package's other
+     operator layouts, the port's one layout here); the flagged runs'
+     residual and coefficients must equal the plain run's bit for bit, and
+     each run
+     launches both block-ELL kernels at least once per CGLS iteration;
+ 20. RBF advection: `models/rbf_advection.RBFAdvectionModel` at
+     tests/test_rbf_advection.py's configuration, counters set to 0 just
+     before the solve and read just after; checks that test's bars, each
+     error and the residual against the JAX package's run on the same
+     draws, and at least one J = 1 mv and rmv launch per CGLS iteration;
+ 21. hash-grid advection path: `advection --network hashgrid --host_rng`
+     with the flags of scripts/advect1D.sh cut to T=HASH_ADV_STEPS and
+     HASH_ADV_ITERS Adam iterations per fit; checks rel L2 against the
+     analytic bump at every t against the JAX package's run on the same
+     draws, and the port's hash on the card against JAX's, bit for bit;
+ 22. trace: more vortex train iterations of both formulations and one more
+     hash-grid advect fit under torch.profiler;
+ 23. one JSON line of kernel records, the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}. siren_forward's record is the lucy
      shape, its launches those of the elasticity 3D path.
 
@@ -209,6 +237,112 @@ ELL_SHAPE = (35600, 768, 192000)
 # slots per chunk of the rmv plan, timed beside the default
 RMV_CHUNK_SWEEP = (64, 128, 256, 512, 1024)
 
+# The rest of the vortex stack. `vortex --solver cg` at starterL.py's
+# defaults cut to 2 Picard iterations of 20 CG iterations (batched CG on
+# the explicit normal equations: two mv and two rmv launches per CG
+# iteration). f32 CG on these normal equations soon follows the summation
+# order (the port and the JAX package on the same CPU draws: residual
+# 62.2 and 59.3 after 2,000 iterations) and forgets its start (CG started
+# at 0 rather than at A^T b reads 20% lower after 20 iterations, 5e-4
+# after 100), so the check stops at 20 (PERF.md section 6); `--mode train`
+# at the defaults (Adam on the coefficients, lr 0.1), in the velocity and
+# the stream formulation; the channel preset at one Picard iteration,
+# plain and with each of `--rmv_gather` and `--packed_vals` (flags that
+# change nothing here: the flagged runs must give the plain run's bits). The JAX
+# reference runs (tests/vortex_hashgrid_reference_jax.py) take these lists
+# as they are.
+VORTEX_CG_ARGS = ["vortex", "--solver", "cg", "--picard_iters", "2",
+                  "--cgls_maxiter", "20"]
+VORTEX_TRAIN_ITERS = 200
+VORTEX_TRAIN_ARGS = ["vortex", "--mode", "train", "--train_iters",
+                     str(VORTEX_TRAIN_ITERS)]
+STREAM_TRAIN_ARGS = ["vortex", "--formulation", "stream", "--mode", "train",
+                     "--train_iters", str(VORTEX_TRAIN_ITERS)]
+FLAG_ARGS = ["vortex", "--preset", "channel", "--picard_iters", "1"]
+FLAG_RUNS = {"plain": [], "rmv_gather": ["--rmv_gather"],
+             "packed_vals": ["--packed_vals"]}
+# RBFAdvectionModel at the configuration of tests/test_rbf_advection.py
+# (11 slices, 800 + 100 points a slice, 400 sites, K 8 x 2 slices, J 8, up
+# to 4,000 CGLS iterations, damp 0.01): one CGLS solve on a J = 1 operator,
+# then the errors of that test on its 25 x 25 grid.
+RBF_ADV_CFG = dict(velocity=(0.5, 0.0), time_num=11, time_length=1.0,
+                   collocation_pts_num=800, boundary_num=100,
+                   n_spatial_basis=400, n_feat=8, neighbor_k=8,
+                   band_width=1.0, cgls_maxiter=4000, cgls_damp=0.01)
+RBF_ADV_BUMP = ((-0.4, 0.0), 0.2)      # gaussian centre and width
+# The hash-grid advection path: scripts/advect1D.sh with `--network
+# hashgrid` (8 levels x 2 features, 2^15 tables, a 2x20 relu head), cut to
+# T=HASH_ADV_STEPS and HASH_ADV_ITERS Adam iterations per fit, where the
+# fits have converged (below ~2,000 iterations the init fit of some seeds
+# had not: rel L2 0.03 to 0.78 at 800); the eager hash-grid advect
+# iteration costs ~18-39 ms on the card, so one step, not two.
+HASH_ADV_STEPS = 1
+HASH_ADV_ITERS = 2400
+# The JAX package on the CPU, run on the port's own draws at the seed each
+# phase runs (the vortex and RBF models draw on the CPU; the hash-grid path
+# runs with --host_rng): `python tests/vortex_hashgrid_reference_jax.py
+# KIND`, PERF.md section 6. Each quantity of the card's run must lie within
+# PAIRED_RTOL of it, relative; CG's iteration counts must equal it.
+VORTEX_CG_JAX = {
+    "residual": (58.19381332397461, 58.23131561279297), "cg_iters": (20, 20),
+    "blocks": {"momentum_u": 0.11224930733442307,
+               "momentum_v": 0.01875557377934456,
+               "continuity": 0.10737233608961105,
+               "free_slip": 0.023716498166322708,
+               "outlet_p": 3.0065755440844555e-11,
+               "inlet_u": 1.1449579000473022,
+               "inlet_v": 0.04727650806307793,
+               "init_var0": 1.1949833631515503, "init_var1": 0.0,
+               "init_var2": 0.0}}
+# the loss at iterations 1 and 200, and each residual block at the init
+# coefficients
+VORTEX_TRAIN_JAX = {
+    "vortex_train": {"loss_first": 4988.84912109375,
+                     "loss_last": 13.98719310760498,
+                     "terms": (4980.68603515625, 0.0796576589345932,
+                               1.4449325799942017, 1.705546498298645,
+                               3.2724437713623047, 1.6604161262512207)},
+    "stream_train": {"loss_first": 3778099.0,
+                     "loss_last": 2851.84130859375,
+                     "terms": (3778057.5, 34.258670806884766,
+                               0.2905040681362152, 4.163293361663818,
+                               2.7199695110321045, 0.49548956751823425)},
+}
+RBF_ADV_JAX = {"err0": 0.00855674549447225, "err1": 0.051230473604359235,
+               "err_static": 0.21184424299676533,
+               "u1_max": 0.7543439865112305, "residual": 0.03685879334807396}
+HASH_ADV_JAX = (0.0010062775108963251, 0.0011528198374435306)
+HASH_JAX = {2: [32440, 22786, 11447, 21699, 10087, 7339, 417, 15826],
+            3: [3380, 28394, 14525, 7890, 13136, 4939, 3068, 28453]}
+# The bars: each above the port's distance from JAX on the same draws on
+# the CPU, and below the move of a dropped residual block (in the block
+# checks) or of CG started where CGLS starts (in the cg residual); PERF.md
+# section 6 gives both.
+PAIRED_RTOL = {"vortex_cg": {"residual": 2e-3, "blocks": 5e-2},
+               "vortex_train": {"loss_first": 5e-3, "loss_last": 2e-2,
+                                "terms": 1e-2},
+               "stream_train": {"loss_first": 5e-3, "loss_last": 0.15,
+                                "terms": 1e-2},
+               "rbf_advection": 1e-3, "hashgrid_advection": 0.25}
+HASH_ADV_ARGS = ["advection", "--network", "hashgrid", "--init_cond",
+                 "example1", "--num_hidden_layers", "2", "--hidden_features",
+                 "20", "-sr", "5000", "--dt", "0.05", "-T",
+                 str(HASH_ADV_STEPS), "--max_n_iters", str(HASH_ADV_ITERS),
+                 "--chunk_size", "200", "--no_backup", "--host_rng"]
+# In 1D every level's table holds all its cells, so the path above never
+# hashes. The hash itself is checked on the card: the port's `_fast_hash`
+# of these integer corners (negative ones too) at table size 2^15 must
+# equal the JAX package's (HASH_JAX) bit for bit.
+HASH_TABLE_SIZE = 1 << 15
+HASH_CORNERS = {
+    2: [[-6277, 29619], [36883, -17055], [-30852, 8251], [13401, 22202],
+        [11410, 17285], [33221, 33230], [34126, 28831], [17681, 33459]],
+    3: [[-38956, -37873, 23811], [-5021, 19854, -1205],
+        [32139, -34788, 13890], [-39550, -28155, 26449],
+        [-16598, 38664, -12118], [22768, 36811, -14752],
+        [38258, 16426, 37492], [-16066, 1036, 19259]],
+}
+
 # The elasticity paths: scripts/elasticity3Dlucy.sh (SIREN 3x128, -sr 20 =
 # 8,000 volume points + every vertex per Adam iteration, -vr 10000) on the
 # lucy-scale stand-in, and scripts/elasticity2Dcollide.sh (SIREN 3x68, -sr
@@ -263,6 +397,44 @@ ELA_2D_JAX = {
 # the width-128 bar of phase_kernels, also held by the elasticity paths'
 # last output against the plain forward of the final field
 ELA_SIREN_ATOL = 5e-5
+
+
+def advect_rel_l2(u, vr, length, vel, dt, t):
+    """Rel L2 of an advection field `u` on the -vr grid against the
+    analytic bump gaussian_like(x - vel dt t, mu=-1.5, sigma=0.1)."""
+    import numpy as np
+    from insr_pde_tpu_torch.ops.sampling import sample_uniform
+    x = (sample_uniform(vr, 1) * (length / 2.0)).numpy()[:, 0]
+    exact = np.exp(-0.5 * (x - vel * dt * t + 1.5) ** 2 / 0.1 ** 2)
+    return float(np.linalg.norm(u - exact) / np.linalg.norm(exact))
+
+
+def rbf_adv_grid():
+    """tests/test_rbf_advection.py's 25 x 25 grid on [-0.9, 0.9]^2."""
+    import numpy as np
+    g = np.linspace(-0.9, 0.9, 25, dtype=np.float32)
+    return np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+
+
+def rbf_adv_errors(u0, u1, grid):
+    """tests/test_rbf_advection.py's numbers of a solved field: rmse at
+    t = 0 and t = 1 against the transported bump, rmse at t = 1 against the
+    bump where it started, and max u at t = 1."""
+    import numpy as np
+    (cx, cy), width = RBF_ADV_BUMP
+    vx, vy = RBF_ADV_CFG["velocity"]
+    T = RBF_ADV_CFG["time_length"]
+
+    def bump(x):
+        return np.exp(-np.sum((x - np.array([cx, cy])) ** 2, axis=-1)
+                      / (2 * width ** 2))
+
+    def rmse(a, b_):
+        return float(np.sqrt(np.mean((a - b_) ** 2)))
+
+    return {"err0": rmse(u0, bump(grid)),
+            "err1": rmse(u1, bump(grid - np.array([vx * T, vy * T]))),
+            "err_static": rmse(u1, bump(grid)), "u1_max": float(u1.max())}
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -661,10 +833,10 @@ def _run_entry(tag, args):
               "siren_vgl_backward": siren_vgl.bwd_launches,
               "advect_fit": advect_fit.launches}
 
+    from insr_pde_tpu_torch.models.solver import ravel
     for name, params in model.fields.items():
-        for w, b in params:
-            if not (torch.isfinite(w).all() and torch.isfinite(b).all()):
-                raise RuntimeError(f"[{tag}] field {name} is not finite")
+        if not torch.isfinite(ravel(params)[0]).all():
+            raise RuntimeError(f"[{tag}] field {name} is not finite")
     return counts, model, os.path.join(proj_dir, tag), wall
 
 
@@ -793,6 +965,43 @@ def phase_merged2_path():
     return counts, model
 
 
+def _trace(tag, fn, iters: int, note: str = ""):
+    """Device busy share of `fn`, which runs `iters` iterations: one warm-up
+    call, one timed call without the profiler, one under torch.profiler.
+    Busy = the summed duration of the device events (one stream, so they
+    do not overlap); the profiler's own host cost inflates the wall under
+    it, so the share is of the unprofiled wall, with both walls printed.
+    Returns fn's last result and the unprofiled ms per iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from insr_pde_tpu_torch.phase_trace import device_summary
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - tic) / iters * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tic) / iters * 1e3
+    events, busy_ms, by_name = device_summary(prof, iters)
+    if not events:
+        print(f"[trace] {tag}: not measured (the profiler recorded no device "
+              f"events); {plain_ms:.5f} ms/iter without it", flush=True)
+        return out, plain_ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"[trace] {tag}: {events:.2f} device events/iter{note}, device "
+          f"busy {busy_ms:.5f} ms/iter; wall {plain_ms:.5f} ms/iter "
+          f"({wall_ms:.5f} under the profiler): busy share "
+          f"{busy_ms / plain_ms:.3f}; largest: "
+          + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
+                      for k, (_, ms) in top), flush=True)
+    return out, plain_ms
+
+
 def phase_trace(split_model, merged2_model, adv_model, iters: int = 50,
                 merged2_iters: int = 10):
     """Device busy share of each step phase of the fluid paths and of the
@@ -800,16 +1009,10 @@ def phase_trace(split_model, merged2_model, adv_model, iters: int = 50,
     (`merged2_iters` per merged2 phase, whose iterations run ~1,000 device
     and many more host events each; one chunk of ADV_CHUNK through the
     fused advect fit, and `iters` through the eager Solver on the same
-    loss), from each path's final fields, under torch.profiler. Busy = the
-    summed duration of the device events (one stream, so they do not
-    overlap); the profiler's own host cost makes the idle share an upper
-    bound, so the same fit's wall time without it is printed beside. Not
-    part of the paths' launch counts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    loss), from each path's final fields, under torch.profiler (`_trace`).
+    Not part of the paths' launch counts."""
     from insr_pde_tpu_torch.models.advection import FusedAdvectSolver
     from insr_pde_tpu_torch.models.solver import Solver
-    from insr_pde_tpu_torch.phase_trace import device_summary
 
     def eager(model, loss_fn, sample_fn, n):
         return Solver(loss_fn, sample_fn, lr=model.cfg.lr, max_n_iters=n,
@@ -846,34 +1049,10 @@ def phase_trace(split_model, merged2_model, adv_model, iters: int = 50,
         ("advection advect (eager Solver)",
          eager(am, am._advect_loss, am._advect_points, iters), af_field,
          {"prev": af_field}, iters)]
-    for tag, solver, params, aux, iters in phases:
-        solver.fit(params, aux)
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        solver.fit(params, aux)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - tic) / iters * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tic = time.perf_counter()
-            solver.fit(params, aux)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - tic) / iters * 1e3
-        events, busy_ms, by_name = device_summary(prof, iters)
-        if not events:
-            print(f"[trace] {tag}: not measured (the profiler recorded no "
-                  f"device events); {plain_ms:.4f} ms/iter without it")
-            continue
-        beside = (f" (eager chain: {EAGER_CHAIN_PRESSURE_EVENTS})"
-                  if tag == "solve_pressure" else "")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
-        print(f"[trace] {tag}: {events:.2f} device events/iter"
-              f"{beside}, device busy {busy_ms:.5f} ms/iter of {wall_ms:.5f} "
-              f"ms/iter wall under the profiler ({plain_ms:.5f} without): "
-              f"busy share {busy_ms / wall_ms:.3f}, idle "
-              f"{1 - busy_ms / wall_ms:.3f}; largest: "
-              + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
-                          for k, (_, ms) in top), flush=True)
+    for tag, solver, params, aux, n in phases:
+        note = (f" (eager chain: {EAGER_CHAIN_PRESSURE_EVENTS})"
+                if tag == "solve_pressure" else "")
+        _trace(tag, lambda: solver.fit(params, aux), n, note)
 
 
 def _advect_ops_per_iter(n, nb, widths):
@@ -1033,12 +1212,10 @@ def phase_advection_path():
     """The advection path through the entry point; returns the launch counts
     of this run and the model."""
     import numpy as np
-    from insr_pde_tpu_torch.ops.sampling import sample_uniform
 
     counts, model, exp_dir, wall = _run_entry("advection", ADV_ARGS)
     results = os.path.join(exp_dir, "results")
     vr = model.vis_resolution
-    x = (sample_uniform(vr, 1) * (model.length / 2.0)).numpy()[:, 0]
     for t in range(ADV_STEPS + 1):
         path = os.path.join(results, f"t{t:03d}.npz")
         if not os.path.exists(path):
@@ -1047,9 +1224,7 @@ def phase_advection_path():
         if u.shape != (vr,) or not np.isfinite(u).all():
             raise RuntimeError(f"[advection] t{t:03d}.npz: shape {u.shape} "
                                "or non-finite values")
-        exact = np.exp(-0.5 * (x - model.vel * model.dt * t + 1.5) ** 2
-                       / 0.1 ** 2)
-        rel = float(np.linalg.norm(u - exact) / np.linalg.norm(exact))
+        rel = advect_rel_l2(u, vr, model.length, model.vel, model.dt, t)
         print(f"[advection] t={t} field rel L2 vs analytic "
               f"gaussian_like(x - vel dt t, mu=-1.5): {rel:.4e} (bar "
               f"{ADV_REL_L2_BAR}; JAX package on the CPU "
@@ -1080,10 +1255,11 @@ def phase_advection_path():
     return counts, model
 
 
-def _run_vortex(tag, args):
+def _run_vortex(tag, args, printed="lstsq residual"):
     """One run of the vortex entry point with the block-ELL launch counts
     set to 0 just before and read just after. Returns (counts, model,
-    output dir, wall seconds, the residuals the entry point printed)."""
+    output dir, wall seconds, the `printed` numbers of its rounds: the
+    lstsq residuals, or the train losses)."""
     import torch
     from insr_pde_tpu_torch.__main__ import main
     from insr_pde_tpu_torch.ops import block_ell
@@ -1102,23 +1278,25 @@ def _run_vortex(tag, args):
         torch.cuda.synchronize()
     finally:
         for line in log.getvalue().splitlines():
-            if line.strip().startswith(("round:", "lstsq", "note:", "built ",
-                                        "warning:")):
+            if line.strip().startswith(("round:", "lstsq", "train loss",
+                                        "note:", "built ", "warning:")):
                 print(f"[{tag}] {line.strip()}")
     wall = time.perf_counter() - tic
     counts = {"block_ell_mv": block_ell.mv_launches,
               "block_ell_rmv": block_ell.rmv_launches}
     residuals = [float(line.split(":")[1]) for line in
-                 log.getvalue().splitlines() if "lstsq residual:" in line]
+                 log.getvalue().splitlines() if f"{printed}:" in line]
     if not residuals or not all(math.isfinite(v) for v in residuals):
-        raise RuntimeError(f"[{tag}] lstsq residuals {residuals}: missing or "
-                           "not finite")
+        raise RuntimeError(f"[{tag}] {printed} {residuals}: missing or not "
+                           "finite")
     return counts, model, out_dir, wall, residuals
 
 
-def _vortex_report(tag, model, counts, out_dir, wall):
-    """Checks the field file and that each kernel launched at least once
-    per CGLS iteration; prints the Picard timings. Returns the field."""
+def _vortex_report(tag, model, counts, out_dir, wall, per_iter=1,
+                   solver="CGLS"):
+    """Checks the field file and that each kernel launched at least
+    `per_iter` times per CGLS (or CG) iteration; prints the Picard timings.
+    Returns the field."""
     import numpy as np
     field = np.load(os.path.join(out_dir, "field.npy"))
     r = model.cfg.vis_resolution
@@ -1128,15 +1306,15 @@ def _vortex_report(tag, model, counts, out_dir, wall):
                            f"{expect}) or non-finite values")
     iters = sum(t["cgls_iters"] for t in model.picard_timings)
     print(f"[{tag}] wall {wall:.2f}s (model build, {len(model.picard_timings)}"
-          f" Picard iterations, outputs); {iters} CGLS iterations")
+          f" Picard iterations, outputs); {iters} {solver} iterations")
     for t in model.picard_timings:
         print(f"[{tag}] picard {t['picard']}: assemble {t['assemble_s']}s, "
               f"whiten {t['whiten_s']}s, solve {t['solve_s']}s "
-              f"({t['cgls_iters']} CGLS iterations, "
+              f"({t['cgls_iters']} {solver} iterations, "
               f"{t['solve_s'] / max(t['cgls_iters'], 1) * 1e3:.4f} ms/iter), "
               f"operands {t['operand_mb']} MB")
-    _check_launches(tag, counts, {"block_ell_mv": iters,
-                                  "block_ell_rmv": iters})
+    _check_launches(tag, counts, {"block_ell_mv": per_iter * iters,
+                                  "block_ell_rmv": per_iter * iters})
     return field
 
 
@@ -1363,10 +1541,7 @@ def phase_vortex_trace(models, iters: int = 200):
     vortex path's system (its own preconditioner, from the solved
     coefficients), under torch.profiler, with the same chunk's wall time
     unprofiled beside."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from insr_pde_tpu_torch.ops.linalg import cgls_sparse_chunked
-    from insr_pde_tpu_torch.phase_trace import device_summary
     for tag, model in models.items():
         A, b = model.assemble(model.params.u)
         precond = model._precondition()
@@ -1378,32 +1553,7 @@ def phase_vortex_trace(models, iters: int = 200):
                                        damp=model.cfg.cgls_damp,
                                        whitener=model._whitener)
 
-        chunk()
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        _, info = chunk()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - tic) / iters * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tic = time.perf_counter()
-            chunk()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - tic) / iters * 1e3
-        events, busy_ms, by_name = device_summary(prof, iters)
-        if not events:
-            print(f"[trace] {tag} CGLS: not measured (the profiler recorded "
-                  f"no device events); {plain_ms:.5f} ms/iter without it")
-            continue
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
-        print(f"[trace] {tag} CGLS chunk ({info['niter']} iterations, "
-              f"precondition {precond}): {events:.2f} device "
-              f"events/iter, device busy {busy_ms:.5f} ms/iter of "
-              f"{wall_ms:.5f} ms/iter wall under the profiler "
-              f"({plain_ms:.5f} without): busy share "
-              f"{busy_ms / plain_ms:.3f} of the unprofiled wall; largest: "
-              + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
-                          for k, (_, ms) in top), flush=True)
+        _trace(f"{tag} CGLS chunk (precondition {precond})", chunk, iters)
 
 
 def _ela_outputs(tag, exp_dir, n_points, dim):
@@ -1560,10 +1710,7 @@ def phase_elasticity_trace(models, iters: int = 30):
     more fit of `iters` Adam iterations from the final fields (the history
     nets the t-1 and t-2 fields, the external force on), under
     torch.profiler, with the same fit's wall time without it beside."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from insr_pde_tpu_torch.models.solver import Solver
-    from insr_pde_tpu_torch.phase_trace import device_summary
     for tag, model in models.items():
         solver = Solver(model._deformation_loss, model._step_points,
                         lr=model.cfg.lr, max_n_iters=iters, chunk_size=iters,
@@ -1572,32 +1719,256 @@ def phase_elasticity_trace(models, iters: int = 30):
         aux = {"prev": model.fields["deformation_prev"],
                "prev_prev": model.fields["deformation_prev_prev"],
                "external": True}
-        solver.fit(params, aux)
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        solver.fit(params, aux)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - tic) / iters * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tic = time.perf_counter()
-            solver.fit(params, aux)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - tic) / iters * 1e3
-        events, busy_ms, by_name = device_summary(prof, iters)
-        if not events:
-            print(f"[trace] {tag} solve_deformation: not measured (the "
-                  f"profiler recorded no device events); {plain_ms:.4f} "
-                  "ms/iter without it")
+        _trace(f"{tag} solve_deformation", lambda: solver.fit(params, aux),
+               iters)
+
+
+def _paired(tag, name, value, ref, rtol):
+    """`value` within `rtol` (relative) of `ref`, the JAX package's value on
+    the same draws; prints the check and raises if it fails."""
+    diff = abs(value - ref) / abs(ref)
+    print(f"[{tag}] {name} {value!r}: JAX on the same draws {ref!r}, "
+          f"relative difference {diff:.3e} (bar {rtol:g})", flush=True)
+    if not diff <= rtol:
+        raise RuntimeError(f"[{tag}] {name} {value} misses its bar: {ref} "
+                           f"+- {rtol:g} relative")
+
+
+def _paired_blocks(tag, what, got, ref, rtol):
+    """Each residual block's value (name -> value) within `rtol` of the
+    JAX package's on the same draws, relative to the larger of its own
+    size and 1e-6 of the largest block's (a block that is zero or at
+    rounding level in both, such as the outlet rows, then passes)."""
+    floor = 1e-6 * max(abs(v) for v in ref.values())
+    worst = max(abs(got[k] - v) / max(abs(v), floor) for k, v in ref.items())
+    print(f"[{tag}] {what}, {len(ref)} blocks: largest relative difference "
+          f"from JAX on the same draws {worst:.3e} (bar {rtol:g})",
+          flush=True)
+    if set(got) != set(ref) or not worst <= rtol:
+        raise RuntimeError(f"[{tag}] {what} miss their bar: {got} against "
+                           f"JAX's {ref}")
+
+
+def phase_vortex_cg():
+    """`vortex --solver cg` at starterL.py's defaults, 2 Picard iterations
+    of 100 CG iterations: each Picard iteration's residual within its bar
+    of the JAX package's on the same draws, its CG count equal to JAX's,
+    and at least two mv and two rmv launches per CG iteration (A^T A p and
+    the true-residual test A^T A x - A^T b)."""
+    counts, model, out_dir, wall, res = _run_vortex("vortex_cg",
+                                                    VORTEX_CG_ARGS)
+    _vortex_report("vortex_cg", model, counts, out_dir, wall, per_iter=2,
+                   solver="CG")
+    timings = model.picard_timings
+    for t, want in zip(timings, VORTEX_CG_JAX["cg_iters"]):
+        if t["cgls_iters"] != want:
+            raise RuntimeError(f"[vortex_cg] picard {t['picard']}: "
+                               f"{t['cgls_iters']} CG iterations, JAX "
+                               f"{want} on the same draws")
+        print(f"[vortex_cg] picard {t['picard']}: "
+              f"{t['assemble_s'] + t['solve_s']:.3f} s (assemble + solve), "
+              f"{t['solve_s'] / t['cgls_iters'] * 1e3:.4f} ms per CG "
+              f"iteration", flush=True)
+    residuals = _logged(out_dir, "vortex_matrix", "residual")
+    if len(residuals) != len(VORTEX_CG_JAX["residual"]):
+        raise RuntimeError(f"[vortex_cg] {len(residuals)} Picard residuals")
+    for i, (r, ref) in enumerate(zip(residuals, VORTEX_CG_JAX["residual"])):
+        _paired("vortex_cg", f"picard {i} residual", r, ref,
+                PAIRED_RTOL["vortex_cg"]["residual"])
+    blocks = {k: v["rms"] for k, v in model.block_residuals().items()}
+    _paired_blocks("vortex_cg", "block residuals of the solution", blocks,
+                   VORTEX_CG_JAX["blocks"], PAIRED_RTOL["vortex_cg"]["blocks"])
+    return counts, model
+
+
+def _logged(out_dir, tag, key):
+    """The values of `key` that a vortex run logged under `tag`, in step
+    order (its log's scalars.jsonl)."""
+    with open(os.path.join(out_dir, "log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r[key] for r in rows if r["tag"] == tag]
+
+
+def phase_vortex_train():
+    """`vortex --mode train` at starterL.py's defaults (200 Adam iterations,
+    lr 0.1), then `--formulation stream --mode train`: the loss at
+    iterations 1 and 200 within their bars, and falling; then each of the
+    six residual blocks at the init coefficients (a model built anew from
+    the same seed) within its bar."""
+    models = {}
+    for tag, args in (("vortex_train", VORTEX_TRAIN_ARGS),
+                      ("stream_train", STREAM_TRAIN_ARGS)):
+        counts, model, out_dir, wall, losses = _run_vortex(
+            tag, args, printed="train loss")
+        loss = _logged(out_dir, "vortex_train", "loss")
+        if len(loss) != VORTEX_TRAIN_ITERS or not all(
+                math.isfinite(v) for v in loss):
+            raise RuntimeError(f"[{tag}] {len(loss)} logged losses, expected "
+                               f"{VORTEX_TRAIN_ITERS} finite ones")
+        ref, rtol = VORTEX_TRAIN_JAX[tag], PAIRED_RTOL[tag]
+        _paired(tag, "loss at iteration 1", loss[0], ref["loss_first"],
+                rtol["loss_first"])
+        _paired(tag, f"loss at iteration {VORTEX_TRAIN_ITERS}", loss[-1],
+                ref["loss_last"], rtol["loss_last"])
+        if not loss[-1] < loss[0]:
+            raise RuntimeError(f"[{tag}] the loss did not fall: {loss[0]} -> "
+                               f"{loss[-1]}")
+        fresh = type(model)(model.cfg, log=False, device=model.device)
+        terms = fresh.residual_terms(fresh.params.u)
+        _paired_blocks(tag, "residual blocks at the init coefficients",
+                       {i: float(v) for i, v in enumerate(terms)},
+                       dict(enumerate(ref["terms"])), rtol["terms"])
+        print(f"[{tag}] wall {wall:.2f}s (model build, "
+              f"{VORTEX_TRAIN_ITERS} Adam iterations, outputs; ms per Adam "
+              f"iteration in the trace phase); block-ELL launches "
+              f"{json.dumps(counts)} (none: Adam runs no operator)",
+              flush=True)
+        models[tag] = model
+    return models
+
+
+def phase_vortex_flags():
+    """The channel preset at one Picard iteration, plain, with
+    --rmv_gather and with --packed_vals: the flags name the JAX package's
+    other operator layouts, which are the port's one layout, so the
+    residual and the coefficients equal the plain run's bit for bit; each
+    run launches both block-ELL kernels at least once per CGLS
+    iteration."""
+    import torch
+    plain = None
+    for name, extra in FLAG_RUNS.items():
+        tag = f"vortex_flags_{name}"
+        counts, model, out_dir, wall, res = _run_vortex(tag,
+                                                        FLAG_ARGS + extra)
+        _vortex_report(tag, model, counts, out_dir, wall)
+        u = model.params.u.detach().cpu()
+        if plain is None:
+            plain = (res[-1], u)
             continue
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
-        print(f"[trace] {tag} solve_deformation: {events:.2f} device "
-              f"events/iter, device busy {busy_ms:.5f} ms/iter of "
-              f"{wall_ms:.5f} ms/iter wall under the profiler ({plain_ms:.5f}"
-              f" without): busy share {busy_ms / wall_ms:.3f} (of the "
-              f"unprofiled wall {busy_ms / plain_ms:.3f}); largest: "
-              + "; ".join(f"{k[:40]} {ms:.5f} ms/iter"
-                          for k, (_, ms) in top), flush=True)
+        same = res[-1] == plain[0] and torch.equal(u, plain[1])
+        print(f"[{tag}] residual {res[-1]!r} (plain {plain[0]!r}), "
+              f"coefficients {'equal' if same else 'NOT equal'} to the plain "
+              f"run's bit for bit", flush=True)
+        if not same:
+            raise RuntimeError(f"[{tag}] differs from the plain run")
+
+
+def _rbf_bump(x):
+    import torch
+    (cx, cy), width = RBF_ADV_BUMP
+    c = torch.tensor([cx, cy], device=x.device)
+    return torch.exp(-torch.sum((x - c) ** 2, dim=-1) / (2 * width ** 2))
+
+
+def phase_rbf_advection():
+    """RBFAdvectionModel at tests/test_rbf_advection.py's configuration on
+    the card: that test's bars, each error and the residual within its bar
+    of the JAX package's on the same draws, and at least one J = 1 mv and
+    one rmv launch per CGLS iteration."""
+    import torch
+    from insr_pde_tpu_torch.models.rbf_advection import (
+        RBFAdvectionConfig, RBFAdvectionModel)
+    from insr_pde_tpu_torch.ops import block_ell
+    tag = "rbf_advection"
+    tic = time.perf_counter()
+    model = RBFAdvectionModel(RBFAdvectionConfig(**RBF_ADV_CFG), _rbf_bump,
+                              device="cuda")
+    A, _ = model.assemble()
+    torch.cuda.synchronize()
+    build = time.perf_counter() - tic
+    block_ell.mv_launches = 0
+    block_ell.rmv_launches = 0
+    tic = time.perf_counter()
+    res = model.solve()
+    torch.cuda.synchronize()
+    solve = time.perf_counter() - tic
+    counts = {"block_ell_mv": block_ell.mv_launches,
+              "block_ell_rmv": block_ell.rmv_launches}
+    niter = model.info["niter"]
+    grid = rbf_adv_grid()
+    g = torch.from_numpy(grid).cuda()
+    errs = rbf_adv_errors(model.evaluate(g, 0.0).cpu().numpy(),
+                          model.evaluate(g, 1.0).cpu().numpy(), grid)
+    R, S, J = A.vals.shape
+    print(f"[{tag}] operator R={R} S={S} J={J}, {A.n_cols} columns; build "
+          f"{build:.2f}s; solve {solve:.3f}s, {niter} CGLS iterations, "
+          f"{solve / niter * 1e3:.4f} ms per CGLS iteration; residual "
+          f"{res:.6g}", flush=True)
+    if not math.isfinite(res):
+        raise RuntimeError(f"[{tag}] residual {res} is not finite")
+    for name, bar, ok in (("err0", 0.05, errs["err0"] < 0.05),
+                          ("err1", 0.08, errs["err1"] < 0.08),
+                          ("err_static", "3 err1",
+                           errs["err_static"] > 3 * errs["err1"]),
+                          ("u1_max", 0.7, errs["u1_max"] > 0.7)):
+        print(f"[{tag}] {name} {errs[name]:.6g} (the test's bar {bar})")
+        if not ok:
+            raise RuntimeError(f"[{tag}] {name} misses the test's bar")
+    for name, ref in RBF_ADV_JAX.items():
+        _paired(tag, name, res if name == "residual" else errs[name], ref,
+                PAIRED_RTOL[tag])
+    _check_launches(tag, counts, {"block_ell_mv": niter,
+                                  "block_ell_rmv": niter})
+    return model
+
+
+def phase_hashgrid_advection():
+    """`advection --network hashgrid` (scripts/advect1D.sh's flags, cut,
+    the draws made on the host): rel L2 against the analytic bump at every
+    t within its bar of the JAX package's on the same draws; ms per Adam
+    iteration per fit. Then the hash on the card, which the 1D path never
+    takes: `_fast_hash` of HASH_CORNERS equal to the JAX package's."""
+    import numpy as np
+    import torch
+    from insr_pde_tpu_torch.models.encodings import _fast_hash
+    tag = "hashgrid_advection"
+    counts, model, exp_dir, wall = _run_entry(tag, HASH_ADV_ARGS)
+    if type(model.net).__name__ != "HashGridField":
+        raise RuntimeError(f"[{tag}] the network is {type(model.net)}")
+    vr = model.vis_resolution
+    for t in range(HASH_ADV_STEPS + 1):
+        u = np.load(os.path.join(exp_dir, "results",
+                                 f"t{t:03d}.npz"))["arr_0"]
+        if u.shape != (vr,) or not np.isfinite(u).all():
+            raise RuntimeError(f"[{tag}] t{t:03d}.npz: shape {u.shape} or "
+                               "non-finite values")
+        rel = advect_rel_l2(u, vr, model.length, model.vel, model.dt, t)
+        _paired(tag, f"t={t} rel L2", rel, HASH_ADV_JAX[t], PAIRED_RTOL[tag])
+    print(f"[{tag}] wall {wall:.2f}s for T={HASH_ADV_STEPS} (init + "
+          f"{HASH_ADV_STEPS} steps, {HASH_ADV_ITERS} Adam iterations per "
+          f"fit, the generic Solver); kernel launches {json.dumps(counts)}")
+    for rec in model.phase_timings:
+        print(f"[{tag}] t={rec['timestep']} {rec['tag']:10s} "
+              f"{rec['n_iters']} iters {rec['sec']:.3f}s "
+              f"{rec['sec'] / max(rec['n_iters'], 1) * 1e3:.4f} ms/iter",
+              flush=True)
+    for dim, corners in HASH_CORNERS.items():
+        got = _fast_hash(torch.tensor(corners, device="cuda"), dim,
+                         HASH_TABLE_SIZE).cpu().tolist()
+        print(f"[{tag}] hash of {len(corners)} corners in {dim}D on the "
+              f"card: {'equal' if got == HASH_JAX[dim] else 'NOT equal'} to "
+              f"the JAX package's", flush=True)
+        if got != HASH_JAX[dim]:
+            raise RuntimeError(f"[{tag}] {dim}D hash {got}, JAX "
+                               f"{HASH_JAX[dim]}")
+    return model
+
+
+def phase_new_paths_trace(train_models, hash_model, iters: int = 20):
+    """Device busy share and events per iteration of the Adam paths of this
+    group: `iters` more vortex train iterations of each formulation and one
+    more hash-grid advect fit of `iters` iterations, under torch.profiler,
+    with the same work's wall time without it beside: the ms per Adam
+    iteration that the train phases report."""
+    from insr_pde_tpu_torch.models.solver import Solver
+    hm = hash_model
+    solver = Solver(hm._advect_loss, hm._advect_points, lr=hm.cfg.lr,
+                    max_n_iters=iters, chunk_size=iters, early_stop=False)
+    field = hm.fields["field"]
+    for tag, m in train_models.items():
+        _trace(f"{tag} Adam", lambda m=m: m.train(iters), iters)
+    _trace("hashgrid_advection advect",
+           lambda: solver.fit(field, {"prev": field}), iters)
 
 
 def _timed(name, fn, *args):
@@ -1636,6 +2007,13 @@ def main() -> int:
     _timed("recap", phase_recap, ela3_dir)
     _timed("elasticity trace", phase_elasticity_trace,
            {"elasticity3D": ela3_model, "elasticity2D": ela2_model})
+    _timed("vortex cg path", phase_vortex_cg)
+    train_models = _timed("vortex train paths", phase_vortex_train)
+    _timed("vortex flags", phase_vortex_flags)
+    _timed("rbf advection", phase_rbf_advection)
+    hash_model = _timed("hashgrid advection path", phase_hashgrid_advection)
+    _timed("new paths trace", phase_new_paths_trace, train_models,
+           hash_model)
     # each kernel's launches from the run of its own path: the elasticity
     # 3D path for siren_forward (its record is the lucy shape), the fluid
     # split main path for the vgl pair, the advection path for advect_fit,

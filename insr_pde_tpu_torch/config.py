@@ -151,6 +151,10 @@ class Config:
     # PyTorch port: the device every tensor lives on. "cuda" raises when no
     # card is present; it never falls back to the CPU.
     device: str = "cuda"
+    # PyTorch port: draw the network init and every collocation point from
+    # a CPU generator and copy them to the device, so that a run on the
+    # card draws the numbers a --device cpu run with the same seed draws
+    host_rng: bool = False
 
     # ---- derived paths ----
     @property
@@ -249,6 +253,9 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    choices=["cuda", "cpu"],
                    help="device of every tensor; cuda raises when no card is "
                         "present")
+    p.add_argument("--host_rng", action="store_true",
+                   help="draw the init and the points on the CPU (the draws "
+                        "of a --device cpu run) and copy them to the device")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--debug_nan", action="store_true")
     p.add_argument("--n_devices", type=int, default=0)

@@ -1,10 +1,12 @@
 """Parameters between the JAX package and the port.
 
-Both keep a network's parameters as a list of `(W (in, out), b (out,))`
-float32 arrays, and the vortex model's RBF parameters and points in the
-same layouts, so conversion is a copy with no transposes. These take and
-return numpy arrays: the port never imports JAX, and a caller holding JAX
-arrays passes `np.asarray` of them.
+Both keep a SIREN's parameters as a list of `(W (in, out), b (out,))`
+float32 arrays, a hash grid's as `{"tables": [(size, F), ...], "head":
+[(W, b), ...]}`, and the vortex model's RBF parameters and points in the
+same layouts, so conversion is a copy with no transposes. These take numpy
+(or array-like) leaves and return tensors, or the reverse: the port never
+imports JAX, and a caller holding JAX arrays passes them as they are
+(`np.asarray` reads them).
 """
 
 from __future__ import annotations
@@ -32,10 +34,27 @@ def params_to_numpy(params) -> List[Tuple[np.ndarray, np.ndarray]]:
             for w, b in params]
 
 
-def fields_from_jax(fields: Dict[str, Sequence], device=None
-                    ) -> Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]:
-    """A model's whole `fields` dict (name -> [(W, b), ...])."""
-    return {name: params_from_jax(p, device) for name, p in fields.items()}
+def hashgrid_params_from_jax(params, device=None):
+    """A `HashGridField`'s {"tables": [...], "head": [(W, b), ...]} of numpy
+    (or array-like) leaves -> the same tree of float32 tensors."""
+    return {"tables": [torch.tensor(np.asarray(t), dtype=torch.float32,
+                                    device=device)
+                       for t in params["tables"]],
+            "head": params_from_jax(params["head"], device)}
+
+
+def hashgrid_params_to_numpy(params):
+    """A `HashGridField`'s tree of tensors -> float32 numpy leaves."""
+    return {"tables": [t.detach().cpu().numpy() for t in params["tables"]],
+            "head": params_to_numpy(params["head"])}
+
+
+def fields_from_jax(fields: Dict[str, Sequence], device=None) -> Dict:
+    """A model's whole `fields` dict (name -> [(W, b), ...], or a hash
+    grid's tree)."""
+    return {name: (hashgrid_params_from_jax(p, device)
+                   if isinstance(p, dict) else params_from_jax(p, device))
+            for name, p in fields.items()}
 
 
 def rbf_params_from_jax(params, device=None):

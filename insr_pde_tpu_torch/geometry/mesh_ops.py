@@ -82,10 +82,9 @@ def volume_weighted_distribution(V, T) -> torch.Tensor:
 def _categorical(generator: torch.Generator, probs: torch.Tensor,
                  n: int) -> torch.Tensor:
     """n indices drawn with the given probabilities: inverse CDF of a
-    uniform, on the generator's device."""
+    uniform drawn on the generator's device, on the device of `probs`."""
     cdf = torch.cumsum(probs, dim=0)
-    u = torch.rand((n,), generator=generator, device=generator.device,
-                   dtype=probs.dtype) * cdf[-1]
+    u = _rand(generator, (n,), probs.dtype, probs.device) * cdf[-1]
     idx = torch.searchsorted(cdf, u, right=True)
     return torch.clamp(idx, max=probs.shape[0] - 1)
 
@@ -107,9 +106,11 @@ def random_tet(generator, V, T, n, distrib=None) -> torch.Tensor:
 # ----------------------------------------------------------------- sampling
 
 
-def _rand(generator, shape, dtype=torch.float32):
-    return torch.rand(shape, generator=generator, device=generator.device,
-                      dtype=dtype)
+def _rand(generator, shape, dtype=torch.float32, device=None):
+    """Uniforms drawn on the generator's device, then moved to `device`."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=dtype)
+    return u if device is None else u.to(device)
 
 
 def sample_surface(generator, V, F, n, distrib=None) -> torch.Tensor:
@@ -117,8 +118,8 @@ def sample_surface(generator, V, F, n, distrib=None) -> torch.Tensor:
     v)."""
     fidx = random_face(generator, V, F, n, distrib)
     f = V[F[fidx]]  # (n, 3, d)
-    u = torch.sqrt(_rand(generator, (n, 1), V.dtype))
-    v = _rand(generator, (n, 1), V.dtype)
+    u = torch.sqrt(_rand(generator, (n, 1), V.dtype, V.device))
+    v = _rand(generator, (n, 1), V.dtype, V.device)
     return (1 - u) * f[:, 0] + (u * (1 - v)) * f[:, 1] + (u * v) * f[:, 2]
 
 
@@ -127,7 +128,7 @@ def sample_volume(generator, V, T, n, distrib=None) -> torch.Tensor:
     barycentric weights."""
     tidx = random_tet(generator, V, T, n, distrib)
     tet = V[T[tidx]]  # (n, 4, d)
-    e = -torch.log1p(-_rand(generator, (n, 4), V.dtype))
+    e = -torch.log1p(-_rand(generator, (n, 4), V.dtype, V.device))
     barys = e / torch.sum(e, dim=1, keepdim=True)
     return torch.einsum("nk,nkd->nd", barys, tet)
 
@@ -146,7 +147,7 @@ def sample_near_surface(generator, V, F, n, variance: float = 0.01,
     """Surface points plus gaussian jitter."""
     samples = sample_surface(generator, V, F, n, distrib)
     noise = torch.randn(samples.shape, generator=generator,
-                        device=generator.device, dtype=V.dtype)
+                        device=generator.device, dtype=V.dtype).to(V.device)
     return samples + variance * noise
 
 
@@ -220,7 +221,7 @@ def sample_spc(generator, corners: torch.Tensor, level: int,
     each corner's cell at `level`, mapped to [-1, 1]^3."""
     res = 2.0 ** level
     jitter = _rand(generator, (corners.shape[0], num_samples, 3),
-                   corners.dtype)
+                   corners.dtype, corners.device)
     samples = (corners[:, None, :3] + jitter).reshape(-1, 3) / res
     return samples * 2.0 - 1.0
 

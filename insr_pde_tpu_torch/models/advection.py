@@ -99,8 +99,8 @@ class Advection1DModel(BaseModel):
 
     # ---- sampling steps (model generator) ----
     def _init_points(self):
-        return {"x": sample_random(self.generator, self.n_samples, 1)
-                * (self.length / 2.0)}
+        return {"x": sample_random(self.generator, self.n_samples,
+                                   1).to(self.device) * (self.length / 2.0)}
 
     def _advect_points(self):
         """One iteration's points for `_advect_loss`: (N, 1) and (NB, 1)."""
@@ -112,8 +112,10 @@ class Advection1DModel(BaseModel):
         xb (n, NB), the JAX model's `sample_random * L/2` and
         `sample_boundary * L/2`."""
         half = self.length / 2.0
-        x = sample_random(self.generator, n * self.n_samples, 1)
-        xb = sample_boundary(self.generator, self.n_boundary, 1, batch=n)
+        x = sample_random(self.generator, n * self.n_samples,
+                          1).to(self.device)
+        xb = sample_boundary(self.generator, self.n_boundary, 1,
+                             batch=n).to(self.device)
         return ((x * half).reshape(n, self.n_samples),
                 (xb * half).reshape(n, -1))
 

@@ -3,8 +3,9 @@
 
 Fields are parameter lists in `self.fields`; "copy weights to the prev net"
 is a list assignment. Each training phase is a cached `Solver`. Every model
-owns one `torch.Generator`, seeded from `cfg.seed`, on its device: network
-init and every collocation draw come from it.
+owns one `torch.Generator`, seeded from `cfg.seed`, on its device (on the
+CPU with `--host_rng`, the draws then copied to the device): network init
+and every collocation draw come from it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ..config import Config
 from ..ops.precision import resolve_device, set_full_precision
@@ -42,7 +44,8 @@ class BaseModel:
         self.early_stop_plateau = cfg.plateau_patience
         self.train_step = 0
 
-        self.generator = torch.Generator(device=self.device)
+        self.generator = torch.Generator(
+            device="cpu" if cfg.host_rng else self.device)
         self.generator.manual_seed(cfg.seed)
         self.fields: Dict[str, Any] = {}   # name -> parameter list
         self.networks: Dict[str, Any] = {}  # name -> MLP
@@ -55,7 +58,8 @@ class BaseModel:
         """Create a network + init params from the model's generator."""
         net = get_network(self.cfg, in_dim, out_dim)
         self.networks[name] = net
-        self.fields[name] = net.init(self.generator)
+        self.fields[name] = tree_map(lambda t: t.to(self.device),
+                                     net.init(self.generator))
         return net
 
     # ---- protocol ----

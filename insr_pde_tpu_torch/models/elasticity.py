@@ -172,7 +172,7 @@ class ElasticityModel(BaseModel):
                                              self.distrib)[:, :self.dim])
                 else:
                     parts.append(sample_random(self.generator, n_random,
-                                               self.dim))
+                                               self.dim).to(self.device))
             else:
                 parts.append(self.mesh_V if self.use_mesh
                              else self._grid(resolution, self.dim))
@@ -185,7 +185,7 @@ class ElasticityModel(BaseModel):
         for s in self.sample_pattern:
             if s == "random":
                 rest = sample_random(self.generator, self.n_fixed,
-                                     self.dim - 1)
+                                     self.dim - 1).to(self.device)
             else:
                 rest = self._grid(self.sample_resolution, self.dim - 1)
             ones = torch.ones((rest.shape[0], 1), dtype=rest.dtype,
@@ -297,7 +297,7 @@ class ElasticityModel(BaseModel):
         of fixed seed (cfg.seed + 7919) plus every vertex, or the box's grid
         and its left and right faces."""
         if self.use_mesh:
-            gen = torch.Generator(device=self.device)
+            gen = torch.Generator(device=self.generator.device)
             gen.manual_seed(self.cfg.seed + VIS_SEED_OFFSET)
             surf = sample_surface(gen, self.mesh_V3, self.mesh_SF,
                                   resolution)[:, :self.dim]

@@ -73,7 +73,8 @@ class Fluid2DModel(BaseModel):
 
     # ---- sampling steps (model generator) ----
     def _interior_points(self):
-        return {"x": sample_random(self.generator, self.n_samples, 2)}
+        return {"x": sample_random(self.generator, self.n_samples,
+                                   2).to(self.device)}
 
     def _points_with_bc(self):
         """Interior points plus the x = ±1 ('horizontal') and y = ±1
@@ -83,7 +84,8 @@ class Fluid2DModel(BaseModel):
                                         "horizontal")
         by = sample_boundary2D_separate(self.generator, self.n_boundary,
                                         "vertical")
-        return {"x": x, "bx": bx, "by": by}
+        return {"x": x.to(self.device), "bx": bx.to(self.device),
+                "by": by.to(self.device)}
 
     # ---- pure loss functions of (params, points, aux) ----
     def _velocity_bc(self, params, pts):

@@ -6,6 +6,8 @@ The SIREN MLP keeps the JAX package's architecture, init distributions
 layout: a list of `(W (in, out), b (out,))` float32 tensors, so parameters
 move between the packages without transposes. `apply(params, x)` is a pure
 function of the list; the solver re-optimizes the list every timestep.
+`HashGridField` is the hash-grid network, `{"tables": [...], "head":
+[(W, b), ...]}`, the JAX package's tree.
 """
 
 from __future__ import annotations
@@ -153,11 +155,81 @@ def _value_grad_laplacian_autodiff(point_fn, batch_fn, coords: torch.Tensor):
     return u, J.transpose(1, 2), L
 
 
+@dataclass(frozen=True)
+class HashGridField:
+    """Multires-hash-grid-encoded field: instant-NGP tables
+    (`encodings.MultiResHashGrid`) and a relu `MLP` head; coordinates are
+    mapped [-1,1]^d -> [0,1]^d. Multilinear interpolation is piecewise
+    linear, so second derivatives vanish almost everywhere: suited to value
+    and first-order losses (advection, elasticity), not the Poisson pressure
+    solve (`second_order_ok` is False, and fluid refuses it). No fused
+    kernel: `apply_fused` is `apply`, and the derivatives go through
+    vmapped jacfwd."""
+    in_features: int
+    out_features: int
+    num_hidden_layers: int = 2
+    hidden_features: int = 64
+    n_levels: int = 8
+    n_features_per_level: int = 2
+    log2_hashmap_size: int = 15
+    base_resolution: int = 8
+    finest_resolution: int = 256
+
+    def _encoder(self):
+        from .encodings import MultiResHashGrid
+        return MultiResHashGrid(
+            dim=self.in_features, n_levels=self.n_levels,
+            n_features_per_level=self.n_features_per_level,
+            log2_hashmap_size=self.log2_hashmap_size,
+            base_resolution=self.base_resolution,
+            finest_resolution=self.finest_resolution)
+
+    def _head(self) -> MLP:
+        return MLP(self._encoder().output_dim, self.out_features,
+                   self.num_hidden_layers, self.hidden_features,
+                   nonlinearity="relu")
+
+    def init(self, generator: torch.Generator):
+        """Fresh tables, then the head, from one generator."""
+        return {"tables": self._encoder().init(generator),
+                "head": self._head().init(generator)}
+
+    def apply(self, params, coords: torch.Tensor) -> torch.Tensor:
+        feats = self._encoder().apply(params["tables"], (coords + 1.0) * 0.5)
+        return self._head().apply(params["head"], feats)
+
+    def apply_fused(self, params, coords: torch.Tensor) -> torch.Tensor:
+        return self.apply(params, coords)
+
+    def point_fn(self, params):
+        return lambda x: self.apply(params, x)
+
+    @property
+    def _is_siren(self) -> bool:
+        return False
+
+    @property
+    def second_order_ok(self) -> bool:
+        return False
+
+    def value_grad(self, params, coords: torch.Tensor):
+        return _value_grad_autodiff(self.point_fn(params),
+                                    lambda x: self.apply(params, x), coords)
+
+    def value_grad_laplacian(self, params, coords: torch.Tensor):
+        # zero second derivatives almost everywhere (see the class docstring)
+        return _value_grad_laplacian_autodiff(
+            self.point_fn(params), lambda x: self.apply(params, x), coords)
+
+
 def get_network(cfg: Any, in_features: int, out_features: int):
-    """Network factory: `siren` only in this slice of the port."""
+    """Network factory: `siren` (an MLP of cfg.nonlinearity) or `hashgrid`
+    (alias `grid`)."""
     if cfg.network == "siren":
         return MLP(in_features, out_features, cfg.num_hidden_layers,
                    cfg.hidden_features, nonlinearity=cfg.nonlinearity)
-    raise NotImplementedError(
-        f"network={cfg.network} is not ported yet (ROADMAP.md Queue 1, "
-        "'models/encodings.py + HashGridField')")
+    if cfg.network in ("grid", "hashgrid"):
+        return HashGridField(in_features, out_features,
+                             num_hidden_layers=cfg.num_hidden_layers,
+                             hidden_features=cfg.hidden_features)
+    raise NotImplementedError(f"network={cfg.network}")

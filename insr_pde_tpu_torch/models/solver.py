@@ -111,18 +111,52 @@ class FitResult:
     final_loss: float
 
 
-def ravel(params) -> Tuple[torch.Tensor, List[torch.Size]]:
-    """Flatten a [(W, b), ...] list into one new vector, plus its shapes."""
-    leaves = [t for wb in params for t in wb]
-    return (torch.cat([t.reshape(-1) for t in leaves]),
-            [t.shape for t in leaves])
+def _spec(tree, leaves: list):
+    """The structure of a parameter tree (dicts in sorted key order, lists,
+    tuples) with each tensor leaf replaced by its shape, appended to
+    `leaves` in that order."""
+    if isinstance(tree, dict):
+        return {k: _spec(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_spec(v, leaves) for v in tree)
+    leaves.append(tree)
+    return tree.shape
 
 
-def unravel(flat: torch.Tensor, shapes: List[torch.Size]):
-    """Views of `flat` as a [(W, b), ...] list (gradients flow to flat)."""
+def _fill(spec, it):
+    if isinstance(spec, dict):
+        return {k: _fill(v, it) for k, v in spec.items()}
+    if isinstance(spec, (list, tuple)) and not isinstance(spec, torch.Size):
+        return type(spec)(_fill(v, it) for v in spec)
+    return next(it)
+
+
+def ravel(params) -> Tuple[torch.Tensor, Any]:
+    """Flatten a parameter tree (a [(W, b), ...] list, or the hash grid's
+    {"tables": [...], "head": [...]}) into one new vector, plus its spec."""
+    leaves: list = []
+    spec = _spec(params, leaves)
+    return torch.cat([t.reshape(-1) for t in leaves]), spec
+
+
+def unravel(flat: torch.Tensor, spec):
+    """Views of `flat` in the tree of `spec` (gradients flow to flat)."""
+    shapes: List[torch.Size] = []
+
+    def collect(s):
+        if isinstance(s, dict):
+            for v in s.values():
+                collect(v)
+        elif isinstance(s, (list, tuple)) and not isinstance(s, torch.Size):
+            for v in s:
+                collect(v)
+        else:
+            shapes.append(s)
+
+    collect(spec)
     sizes = [int(np.prod(s)) for s in shapes]
-    leaves = [p.view(s) for p, s in zip(torch.split(flat, sizes), shapes)]
-    return [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+    views = (p.view(s) for p, s in zip(torch.split(flat, sizes), shapes))
+    return _fill(spec, views)
 
 
 def _where(pred, new: NamedTuple, old: NamedTuple):

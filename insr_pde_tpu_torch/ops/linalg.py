@@ -1,29 +1,37 @@
 """Matrix-free least squares over block-ELL operators (counterpart of the
-part of `insr_pde_tpu/ops/linalg.py` that the vortex matrix path runs).
+single-device part of `insr_pde_tpu/ops/linalg.py`).
 
+* `cg_batch`: batched preconditioned CG on (K, n, m) systems, and
+  `cg_solve`, its `autograd.Function` whose backward solves with the same
+  operator; the vortex model's `solver="cg"` runs it on the explicit normal
+  equations.
 * `cgls`: damped CGLS with the best-iterate guard, the 1e4 * best_phi
   divergence stop and an optional restart of each chunk from the best
-  iterate, the one loop of this module; `cgls_sparse_chunked` runs it on a
-  `BlockSparse` operator with Jacobi column scaling or the per-site-block
-  eigen-whitener, and `cgls_sparse` / `cgls_block_precond` are its long-loop
-  forms (the JAX package's entry points of those names).
+  iterate; `cgls_sparse_chunked` runs it on a `BlockSparse` operator with
+  Jacobi column scaling or the per-site-block eigen-whitener, and
+  `cgls_sparse` / `cgls_block_precond` are its long-loop forms (the JAX
+  package's entry points of those names).
 * `PaddedSparse` (scalar ELL) and `BlockSparse` (block ELL): on CUDA
   tensors `mv` and `rmv` launch the hand-written kernels of
   `ops/block_ell.py`; on CPU tensors they run their plain versions.
 * `block_gram`, `block_whitener_host` (eigendecomposition on the host in
   float64), `_block_apply`, `_prewhiten_x0`.
 
-The JAX package runs each CGLS loop as a `lax.while_loop` that stops when
-its condition fails. Here every iteration evaluates that condition on the
-device as a flag that freezes the state (the iterate, residual, direction,
-gamma, count and best iterate keep their values once it is false), and the
+The JAX package runs each CG and CGLS loop as a `lax.while_loop` that stops
+when its condition fails. Here every iteration evaluates that condition on
+the device as a flag that freezes the state (the iterates, residuals,
+directions, scalars and count keep their values once it is false), and the
 host reads the state once per chunk. The iterates and iteration counts are
 those of the while loop; the host never waits on the card inside a chunk.
 
-The JAX package's XLA workarounds (`_MATVEC_CHUNK_ELEMS`'s row chunking,
-`BlockSparseP`'s packed layout) exist for the TPU's T(8,128) tile padding:
-a contiguous (R, S, J) tensor has none, and the kernels need no
-temporaries, so they are not ported.
+The JAX package's other operator layouts exist for the TPU: `BlockSparseP`
+packs (R, S, J) values as (R, S*J) for its T(8,128) tile padding, which a
+contiguous (R, S, J) tensor already is in memory, and
+`BlockSparse.rmv_gather` pulls Aᵀ r over a transpose index instead of
+XLA's scatter, which the rmv kernel always does. So neither is ported: the
+vortex model's `packed_vals` and `rmv_gather` select the one layout here.
+`_MATVEC_CHUNK_ELEMS`'s row chunking bounds XLA temporaries the kernels do
+not make, and is not ported either.
 """
 
 from __future__ import annotations
@@ -184,6 +192,103 @@ def _prewhiten_x0(W_f64: np.ndarray, x0: torch.Tensor,
         W_f64, x0np.astype(np.float64).reshape(n_blocks, -1)[..., None]
     )[..., 0].reshape(-1).astype(np.float32)
     return torch.from_numpy(y0).to(x0.device)
+
+
+# -------------------------------------------------------------- cg_batch
+
+
+class CGState(NamedTuple):
+    X: torch.Tensor      # iterate (K, n, m)
+    R: torch.Tensor      # residual B - A X
+    rz: torch.Tensor     # <R, Z> per batch and column (K, 1, m)
+    P: torch.Tensor      # search direction
+    k: torch.Tensor      # iterations taken (int32)
+    done: torch.Tensor   # every residual under its bar
+
+
+def _cg_iterate(A_bmm, M_bmm, B, stop, st: CGState, n: int,
+                maxiter: int) -> CGState:
+    """n CG iterations. Each one takes effect only while ~done & (k <
+    maxiter), the JAX while loop's condition; once it fails the state stays
+    as it is. `done` is the true residual test |A X - B| <= stop of the new
+    iterate, one more operator application per iteration, as in JAX."""
+    X, R, rz, P, k, done = st
+    for _ in range(n):
+        active = (~done) & (k < maxiter)
+        AP = A_bmm(P)
+        denom = torch.sum(P * AP, dim=1, keepdim=True)
+        denom = torch.where(denom == 0, 1e-8, denom)
+        alpha = rz / denom
+        X_n = X + alpha * P
+        R_n = R - alpha * AP
+        Z = M_bmm(R_n)
+        rz_n = torch.sum(R_n * Z, dim=1, keepdim=True)
+        beta = rz_n / torch.where(rz == 0, 1e-8, rz)
+        P_n = Z + beta * P
+        done_n = torch.all(torch.linalg.norm(A_bmm(X_n) - B, dim=1) <= stop)
+        X, R, rz, P = (torch.where(active, a, b_) for a, b_ in
+                       ((X_n, X), (R_n, R), (rz_n, rz), (P_n, P)))
+        done = torch.where(active, done_n, done)
+        k = k + active.to(torch.int32)
+    return CGState(X, R, rz, P, k, done)
+
+
+def cg_batch(A_bmm: Callable, B: torch.Tensor,
+             M_bmm: Optional[Callable] = None,
+             X0: Optional[torch.Tensor] = None, rtol: float = 1e-3,
+             atol: float = 0.0, maxiter: Optional[int] = None,
+             check_every: int = 200):
+    """Solve a batch of SPD systems A_i X_i = B_i, B (K, n, m), by
+    preconditioned CG: X0 defaults to M(B), maxiter to 5 n; each batch's
+    iterates freeze once every residual norm |A X - B| (over n, per column)
+    is at most max(rtol |B|, atol), and the loop ends when all have or at
+    maxiter. The host reads the state every `check_every` iterations to stop
+    early; the iterates do not depend on it. Returns (X, info with 'niter'
+    and 'optimal')."""
+    K, n, m = B.shape
+    if M_bmm is None:
+        def M_bmm(x):
+            return x
+    if X0 is None:
+        X0 = M_bmm(B)
+    if maxiter is None:
+        maxiter = 5 * n
+    stop = torch.clamp(rtol * torch.linalg.norm(B, dim=1), min=atol)
+    R0 = B - A_bmm(X0)
+    Z0 = M_bmm(R0)
+    st = CGState(X0, R0, torch.sum(R0 * Z0, dim=1, keepdim=True), Z0,
+                 torch.zeros((), dtype=torch.int32, device=B.device),
+                 torch.all(torch.linalg.norm(A_bmm(X0) - B, dim=1) <= stop))
+    it = 0
+    while True:
+        st = _cg_iterate(A_bmm, M_bmm, B, stop, st,
+                         max(min(check_every, maxiter - it), 0), maxiter)
+        new_it, done = torch.stack([st.k.to(torch.float64),
+                                    st.done.to(torch.float64)]).tolist()
+        if done or new_it >= maxiter or int(new_it) == it:
+            break
+        it = int(new_it)
+    return st.X, {"niter": int(st.k), "optimal": bool(st.done)}
+
+
+class _CGSolve(torch.autograd.Function):
+    """X = A^-1 B by `cg_batch`; the backward solves A dB = dX with the same
+    operator (A symmetric, treated as constant)."""
+
+    @staticmethod
+    def forward(ctx, B, A_bmm, kw):
+        ctx.A_bmm, ctx.kw = A_bmm, kw
+        return cg_batch(A_bmm, B, **kw)[0]
+
+    @staticmethod
+    def backward(ctx, dX):
+        return cg_batch(ctx.A_bmm, dX, **ctx.kw)[0], None, None
+
+
+def cg_solve(A_bmm: Callable, B: torch.Tensor, **kw) -> torch.Tensor:
+    """Differentiable batched CG (the JAX package's `cg_solve`, a
+    `custom_vjp`): gradients reach B through a second CG solve."""
+    return _CGSolve.apply(B, A_bmm, kw)
 
 
 # ------------------------------------------------------------------ CGLS

@@ -5,11 +5,11 @@
         starterL.py> [--device cpu]
 
 The same flags, defaults, presets and stream/velocity defaults as
-`starterL.py`; each round runs `matrix_solver`, saves the coefficients and
-writes the sampled field. Runs on the card (`--device cuda`, the default)
-unless asked for the CPU; without a card, cuda raises. `--mode train`,
-`--solver cg`, `--rmv_gather` and `--packed_vals` are not ported and raise;
-so does `--host_sync`, a workaround for the JAX package's TPU backend.
+`starterL.py`; each round runs `matrix_solver` (`--mode matrix`, with
+`--solver cgls|cg`) or `train(--train_iters)` (`--mode train`), saves the
+coefficients and writes the sampled field. Runs on the card (`--device
+cuda`, the default) unless asked for the CPU; without a card, cuda raises.
+`--host_sync`, a workaround for the JAX package's TPU backend, is refused.
 """
 
 from __future__ import annotations
@@ -34,9 +34,6 @@ PRESETS = {
                     collocation=8000, boundary=3200,
                     reuse_whitener=True, warm_start=1.0),
 }
-
-_ROADMAP = "is not ported yet (ROADMAP.md Queue 1 item 13, the vortex stack)"
-
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser("insr_pde_tpu_torch vortex")
@@ -109,13 +106,7 @@ def parse_args(argv=None):
 
 def build_config(args) -> VortexConfig:
     """The VortexConfig of parsed flags, with starterL.py's stream/velocity
-    defaults. Raises on the unported options before anything is built."""
-    for flag, on in (("--mode train", args.mode == "train"),
-                     ("--solver cg", args.solver == "cg"),
-                     ("--rmv_gather", args.rmv_gather),
-                     ("--packed_vals", bool(args.packed_vals))):
-        if on:
-            raise NotImplementedError(f"{flag} {_ROADMAP}")
+    defaults. Raises on `--host_sync` before anything is built."""
     if args.host_sync:
         raise NotImplementedError(
             "--host_sync round-trips the assembled system through host "
@@ -147,7 +138,8 @@ def build_config(args) -> VortexConfig:
         pou_time=args.pou_time, time_window=args.time_window,
         pou_normalize=args.pou_normalize,
         cgls_precondition=args.precondition, outlet_v=args.outlet_v,
-        reuse_whitener=args.reuse_whitener,
+        rmv_gather=args.rmv_gather, reuse_whitener=args.reuse_whitener,
+        packed_vals=bool(args.packed_vals),
         warm_start=(args.warm_start if args.warm_start is not None else 0.0),
         stream_bc=args.stream_bc, log_dir=args.log_dir)
 
@@ -167,8 +159,12 @@ def main(argv=None):
 
     for r in range(args.n_rounds):
         print(f"round: {r}")
-        res = model.matrix_solver(solver=args.solver)
-        print(f"  lstsq residual: {res:.4e}")
+        if args.mode == "matrix":
+            res = model.matrix_solver(solver=args.solver)
+            print(f"  lstsq residual: {res:.4e}")
+        else:
+            loss = model.train(args.train_iters)
+            print(f"  train loss: {loss:.4e}")
         if ckpt_path != "none":
             model.save_ckpt(ckpt_path)
         model.write_output(args.output_path)

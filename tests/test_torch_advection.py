@@ -46,9 +46,7 @@ def _models(tmp_path, **over):
     tcfg = TConfig(proj_dir=str(tmp_path), tag="torch", device="cpu", **kw)
     jm = JAdv(jcfg)
     tm = tadv.Advection1DModel(tcfg)
-    tm.fields = fields_from_jax(
-        {k: [(np.asarray(w), np.asarray(b)) for w, b in v]
-         for k, v in jm.fields.items()})
+    tm.fields = fields_from_jax(jm.fields)
     return jcfg, tcfg, jm, tm
 
 
@@ -268,12 +266,90 @@ def test_sample_boundary_matches_jax_geometry():
 
 
 def test_non_siren_network_refused(tmp_path):
-    """Only the hash grid, which the port has not ported yet, is refused:
-    relu and elu nets are taken (the tests below)."""
+    """No network is refused any more: the hash grid, the last one the port
+    lacked, builds the model and takes the generic Solver for the advect
+    phase (no fused fit), as relu and elu nets do (the tests below)."""
     cfg = TConfig(proj_dir=str(tmp_path), device="cpu", network="hashgrid",
                   **BASE)
-    with pytest.raises(NotImplementedError, match="hashgrid"):
-        tadv.Advection1DModel(cfg)
+    tm = tadv.Advection1DModel(cfg)
+    assert type(tm.net).__name__ == "HashGridField"
+    assert tm.advect_solver is None
+    assert set(tm.fields["field"]) == {"tables", "head"}
+
+
+def _grad_leaves(tree):
+    """A hash grid's parameter (or gradient) tree as its leaves in the JAX
+    package's order (dict keys sorted: head, then tables)."""
+    return ([t for wb in tree["head"] for t in wb] + list(tree["tables"]))
+
+
+def test_hashgrid_advect_loss_matches_jax(tmp_path):
+    """The pure `_advect_loss` of the hash-grid field (tables scaled up to
+    O(1) entries so that the encoding carries the field) on JAX's points:
+    loss terms at rtol 1e-5, gradients within 1e-5 of the largest entry."""
+    _, _, jm, tm = _models(tmp_path, network="hashgrid")
+    for name in ("field", "field_prev"):
+        jm.fields[name] = {"tables": [t * 1e4 for t in
+                                      jm.fields[name]["tables"]],
+                           "head": jm.fields[name]["head"]}
+    jm.fields["field_prev"] = {"tables": [t[::-1] for t in
+                                          jm.fields["field_prev"]["tables"]],
+                               "head": jm.fields["field_prev"]["head"]}
+    tm.fields = fields_from_jax(jm.fields)
+    key = jax.random.PRNGKey(7)
+    jaux = {"prev": jm.fields["field_prev"]}
+
+    def jtotal(p):
+        ld = jm._advect_loss(p, key, jaux)
+        return sum(ld.values()), ld
+
+    (_, jld), jgrad = jax.value_and_grad(jtotal, has_aux=True)(
+        jm.fields["field"])
+    from insr_pde_tpu_torch.models.solver import ravel, unravel
+    flat, spec = ravel(tm.fields["field"])
+    flat = flat.requires_grad_(True)
+    tld = tm._advect_loss(unravel(flat, spec),
+                          _jax_points(jm, "advect", key),
+                          {"prev": tm.fields["field_prev"]})
+    sum(tld.values()).backward()
+    assert set(tld) == set(jld) == {"main", "bc"}
+    for k in jld:
+        np.testing.assert_allclose(tld[k].item(), float(jld[k]), rtol=1e-5)
+    jl = [np.asarray(a) for a in _grad_leaves(jgrad)]
+    tl = _grad_leaves(unravel(flat.grad, spec))
+    scale = max(float(np.abs(a).max()) for a in jl)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_hashgrid_checkpoint_resumes_across_packages(tmp_path, writer):
+    """A hash-grid advection run's checkpoint (`{"tables", "head"}` under
+    the same path keys in both packages) loads leaf for leaf in the other
+    package, and the run resumes there from it."""
+    jcfg, tcfg, jm, tm = _models(tmp_path, network="hashgrid", seed=0,
+                                 max_n_iters=5, chunk_size=5)
+    jcfg.setup_dirs()
+    tcfg.tag = "jax"          # one model dir for both packages
+    src, dst = (jm, tm) if writer == "jax" else (tm, jm)
+    src.fields["field"]["tables"][0] = src.fields["field"]["tables"][0] + 0.5
+    src.timestep = 4
+    src.save_ckpt()
+    with np.load(os.path.join(jcfg.model_dir, "ckpt_step_t004.npz")) as d:
+        assert "['field']['tables'][0]" in d.files
+        assert "['field_prev']['head'][2][1]" in d.files
+    dst.load_ckpt("latest")
+    assert dst.timestep == 4
+    for name in ("field", "field_prev"):
+        for a, b in zip(_grad_leaves(src.fields[name]),
+                        _grad_leaves(dst.fields[name])):
+            a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+            np.testing.assert_array_equal(a, b)
+    if writer == "jax":
+        tm.cfg.setup_dirs()
+        res = tm.step()
+        assert tm.timestep == 5 and res.n_iters == 5
 
 
 def test_relu_advect_loss_matches_jax(tmp_path):

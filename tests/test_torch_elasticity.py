@@ -69,9 +69,7 @@ def _models(tmp_path, scene="2d", **over):
     tcfg = TConfig(proj_dir=str(tmp_path), tag="torch", device="cpu", **kw)
     jm = JElasticity(jcfg)
     tm = telast.ElasticityModel(tcfg)
-    tm.fields = fields_from_jax(
-        {k: [(np.asarray(w), np.asarray(b)) for w, b in v]
-         for k, v in jm.fields.items()})
+    tm.fields = fields_from_jax(jm.fields)
     return jcfg, tcfg, jm, tm
 
 
@@ -152,6 +150,53 @@ def test_deformation_loss_and_gradient_match_jax(tmp_path, scene, energy,
         tg = np.zeros(t.shape, np.float32) if t.grad is None else t.grad
         np.testing.assert_allclose(np.asarray(tg), np.asarray(g),
                                    atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("scene", ["2d", "3d"])
+def test_hashgrid_deformation_loss_matches_jax(tmp_path, scene):
+    """`--network hashgrid` (the JAX models are network-generic): every
+    energy term of the scene at timestep 1 through the hash-grid field
+    (tables scaled to O(1e-2) entries so that the encoding moves the
+    points, history nets from other keys), loss rtol 1e-4 and gradients
+    within 1e-4 of the largest entry, as for the SIREN."""
+    from insr_pde_tpu_torch.convert import hashgrid_params_from_jax
+    from insr_pde_tpu_torch.models.solver import ravel, unravel
+    energy = ALL_2D if scene == "2d" else ALL_3D
+    _, _, jm, tm = _models(tmp_path, scene, energy=energy,
+                           network="hashgrid")
+    assert type(tm.net).__name__ == "HashGridField"
+
+    def scaled(p):
+        return {"tables": [t * 100.0 for t in p["tables"]],
+                "head": p["head"]}
+
+    key = jax.random.PRNGKey(11)
+    hist = {name: scaled(jm.net.init(jax.random.PRNGKey(seed)))
+            for name, seed in (("prev", 21), ("prev_prev", 22))}
+    params = scaled(jm.fields["deformation"])
+    jaux = {**hist, "timestep": jnp.asarray(1.0, jnp.float32)}
+    taux = {k: hashgrid_params_from_jax(v) for k, v in hist.items()}
+    taux["external"] = True
+
+    def jtotal(p):
+        ld = jm._deformation_loss(p, key, jaux)
+        return sum(ld.values()), ld
+
+    (_, jld), jgrad = jax.value_and_grad(jtotal, has_aux=True)(params)
+    flat, spec = ravel(hashgrid_params_from_jax(params))
+    flat = flat.requires_grad_(True)
+    tld = tm._deformation_loss(unravel(flat, spec),
+                               _jax_points(jm, "step", key), taux)
+    sum(tld.values()).backward()
+    np.testing.assert_allclose(tld["main"].item(), float(jld["main"]),
+                               rtol=1e-4)
+    g = unravel(flat.grad, spec)
+    jl = [np.asarray(a) for a in
+          [t for wb in jgrad["head"] for t in wb] + list(jgrad["tables"])]
+    tl = [t for wb in g["head"] for t in wb] + list(g["tables"])
+    scale = max(float(np.abs(a).max()) for a in jl)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("scene", ["2d", "3d"])

@@ -146,8 +146,17 @@ def test_sine_init_distribution():
 
 
 def test_get_network():
+    """siren builds the MLP; hashgrid (alias grid) the hash-grid field with
+    the flags' head (`tests/test_torch_encodings.py` holds it against
+    JAX's); an unknown network raises, as in the JAX package."""
+    from insr_pde_tpu_torch.models.networks import HashGridField
     cfg = Config(hidden_features=8, num_hidden_layers=1)
     net = get_network(cfg, 2, 1)
     assert isinstance(net, MLP) and net.layer_dims == [(2, 8), (8, 8), (8, 1)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network(Config(network="hashgrid"), 2, 1)
+    for name in ("hashgrid", "grid"):
+        grid = get_network(Config(network=name, hidden_features=8,
+                                  num_hidden_layers=1), 2, 1)
+        assert isinstance(grid, HashGridField)
+        assert grid._head().layer_dims == [(16, 8), (8, 8), (8, 1)]
+    with pytest.raises(NotImplementedError, match="network=mlp"):
+        get_network(Config(network="mlp"), 2, 1)

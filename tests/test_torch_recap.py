@@ -110,3 +110,20 @@ def test_recap_vortex_re_renders_the_slices(tmp_path, preset):
                 "-o", str(tmp_path / "abs")])
     field = np.load(tmp_path / "abs" / "field.npy")
     assert field.shape[:2] == (3, 49) and np.isfinite(field).all()
+
+
+def test_recap_re_renders_a_hashgrid_advection_run(tmp_path):
+    """`recap advection` of a `--network hashgrid` run: the tables and head
+    come back from each checkpoint and give the training outputs' bits."""
+    args, vr, _ = RUNS["advection"]
+    cli.main(args + COMMON + ["--network", "hashgrid", "-T", "2", "-vr", vr,
+                              "--proj_dir", str(tmp_path), "--tag", "h"])
+    model = recap.main(["advection", "--proj_dir", str(tmp_path), "--tag",
+                        "h", "-vr", vr])
+    assert type(model.net).__name__ == "HashGridField"
+    exp = tmp_path / "h"
+    for t in range(3):
+        got = _arrays(str(exp / "recap" / f"t{t:03d}.npz"))
+        ref = _arrays(str(exp / "results" / f"t{t:03d}.npz"))
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k])
