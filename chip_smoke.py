@@ -118,7 +118,30 @@ result line):
      draws, and the port's hash on the card against JAX's, bit for bit;
  22. trace: more vortex train iterations of both formulations and one more
      hash-grid advect fit under torch.profiler;
- 23. one JSON line of kernel records, the nvidia-smi line, and the last
+ 23. sharded gradient (2 ranks sharing the one card, gloo): the split
+     pressure phase's gradient program (3x32, 16,384 points) on 2 ranks of
+     8,192 points each against the whole batch in this process (reduced
+     loss and grad within SHARD_GRAD_RTOL), each rank launching the vgl
+     pair; then the whole batch on a one-rank NCCL group built explicitly
+     (NCCL's init and all_reduce on the card; the same bits);
+ 24. sharded fluid path (2 ranks sharing the one card, gloo): `fluid`
+     split, 3x32, -sr 128, T=1, MAX_ITERS iterations per fit, `--n_devices
+     2`, each rank's counters set to 0 just before and read just after by
+     that rank; finite fields, the t=0 Taylor-Green bar, rank 0's outputs
+     alone, the vgl pair on both ranks and rank 0's SIREN forward in
+     write_output; ms per Adam iteration per phase beside the main path's;
+ 25. sharded vortex channel (2 ranks sharing the one card, gloo): each
+     rank's rows of the first channel system equal the single-process
+     assembly's padded slice, the block Gram summed from the shards within
+     SHARD_GRAM_RTOL of the whole one, the iterate after
+     SHARD_CHANNEL_ITERS block-whitened CGLS iterations within
+     SHARD_ITERATE_RTOL of the single process's, with its whitener and with
+     the ranks' own, then `vortex --preset channel --picard_iters 1 --n_devices
+     2` (2,000 iterations) under the channel bars, mv and rmv launched at
+     least once per CGLS iteration on each rank;
+ 26. with two or more cards, phases 23-25 again over NCCL with one rank per
+     card; else one line saying they were not run and why;
+ 27. one JSON line of kernel records, the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}. siren_forward's record is the lucy
      shape, its launches those of the elasticity 3D path.
 
@@ -1844,6 +1867,7 @@ def phase_vortex_flags():
         u = model.params.u.detach().cpu()
         if plain is None:
             plain = (res[-1], u)
+            plain_timings = model.picard_timings
             continue
         same = res[-1] == plain[0] and torch.equal(u, plain[1])
         print(f"[{tag}] residual {res[-1]!r} (plain {plain[0]!r}), "
@@ -1851,6 +1875,7 @@ def phase_vortex_flags():
               f"run's bit for bit", flush=True)
         if not same:
             raise RuntimeError(f"[{tag}] differs from the plain run")
+    return plain_timings
 
 
 def _rbf_bump(x):
@@ -1971,6 +1996,411 @@ def phase_new_paths_trace(train_models, hash_model, iters: int = 20):
            lambda: solver.fit(field, {"prev": field}), iters)
 
 
+# ------------------------------------------------------------ sharded paths
+#
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device); NCCL runs as a one-rank group; with two or more cards the three
+# phases run again over NCCL, one rank per card. Ranks are spawned by
+# `parallel.launch` (their bodies are the `_rank_*` functions below, which a
+# spawned child imports from this file) and each reads its own kernel
+# counters.
+
+SHARD_WORLD = 2
+SHARD_GRAD_RTOL = 1e-5        # reduced loss and grad against the whole batch
+SHARD_GRAD_REPS = 20
+SHARD_FLUID_ARGS = ["fluid", "--init_cond", "taylorgreen",
+                    "--num_hidden_layers", "3", "--hidden_features", "32",
+                    "-sr", "128", "-vr", "128", "--dt", "0.05", "-T", "1",
+                    "--max_n_iters", str(MAX_ITERS), "--chunk_size", "250",
+                    "--no_backup"]
+SHARD_CHANNEL_ARGS = ["vortex", "--preset", "channel", "--picard_iters", "1"]
+SHARD_CHANNEL_ITERS = 20      # iterations of the iterate check
+# the iterate against the single process's: f32 CGLS on the whitened
+# stream system moves with the summation order alone. One process on the
+# channel's rows taken in the ranks' order moved it 9.623e-4 from the same
+# process on its own order after 20 iterations on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md section 6; 6e-4 on a small channel system on the CPU),
+# so 1e-4 is beyond f32 here and the bar is twice that drift
+SHARD_ORDER_DRIFT = 9.623e-4
+SHARD_ITERATE_RTOL = 2.0 * SHARD_ORDER_DRIFT
+SHARD_GRAM_RTOL = 1e-5        # the Gram summed from the shards
+SHARD_ROWS_ATOL = 1e-6        # each rank's rows against the padded slice
+SHARD_DEADLINE_S = 300
+
+
+def _rel(a, b):
+    import numpy as np
+    return float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                 / max(np.linalg.norm(np.asarray(b, np.float64)), 1e-30))
+
+
+def _grad_model(group):
+    import torch
+    from insr_pde_tpu_torch.config import Config
+    from insr_pde_tpu_torch.models.fluid import Fluid2DModel
+    cfg = Config(pde="fluid", init_cond="taylorgreen", num_hidden_layers=3,
+                 hidden_features=32, sample_resolution=128, device="cuda")
+    return Fluid2DModel(cfg, group), torch.device("cuda",
+                                                  torch.cuda.current_device())
+
+
+def _pressure_grad(model, group, pts, reps):
+    """(losses, grad, vgl launches of one call, ms per call) of the split
+    pressure phase's gradient program on `pts`."""
+    import torch
+    from insr_pde_tpu_torch.models.solver import Solver, ravel
+    from insr_pde_tpu_torch.ops.siren_vgl import siren_vgl
+    solver = Solver(model._pressure_loss, None, lr=1e-4, max_n_iters=1,
+                    group=group)
+    flat, spec = ravel(model.fields["pressure"])
+    aux = {"vel": model.fields["velocity"]}
+    siren_vgl.fwd_launches = 0
+    siren_vgl.bwd_launches = 0
+    ld, grad = solver.value_and_grad(flat, spec, pts, aux)
+    torch.cuda.synchronize()
+    counts = {"siren_vgl_forward": siren_vgl.fwd_launches,
+              "siren_vgl_backward": siren_vgl.bwd_launches}
+    tic = time.perf_counter()
+    for _ in range(reps):
+        solver.value_and_grad(flat, spec, pts, aux)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - tic) / max(reps, 1) * 1e3
+    return ({k: float(v) for k, v in ld.items()}, grad.cpu().numpy(),
+            counts, ms)
+
+
+def _rank_grad(n_devices, backend, fields, points, reps):
+    """One rank of the sharded gradient phase: `points[rank]` through the
+    port's Solver on a group of `n_devices` ranks (0: the launched group
+    itself, built explicitly, of any size)."""
+    import numpy as np
+    import torch
+    from insr_pde_tpu_torch.convert import fields_from_jax
+    from insr_pde_tpu_torch.parallel import current_group, make_group
+    group = (make_group(n_devices, backend, "cuda") if n_devices
+             else current_group())
+    model, dev = _grad_model(group)
+    model.fields = fields_from_jax(fields, dev)
+    pts = {k: torch.from_numpy(v).to(dev)
+           for k, v in points[group.rank].items()}
+    ld, grad, counts, ms = _pressure_grad(model, group, pts, reps)
+    return {"main": np.asarray(ld["main"]), "bc": np.asarray(ld["bc"]),
+            "grad": grad, "ms": np.asarray(ms), "backend": np.asarray(
+                group.backend), "size": np.asarray(group.size),
+            **{k: np.asarray(v) for k, v in counts.items()}}
+
+
+def phase_sharded_gradient(backend="gloo", device="cuda:0"):
+    """The split pressure phase's gradient program at full width (3x32,
+    16,384 points) on SHARD_WORLD ranks of 8,192 points each, against the
+    whole batch in this process; then the whole batch on a one-rank NCCL
+    group (a no-op reduction)."""
+    import numpy as np
+    import torch
+    from insr_pde_tpu_torch.convert import params_to_numpy
+    from insr_pde_tpu_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    model, dev = _grad_model(None)
+    model.n_boundary = 162          # even halves on every boundary pair
+    whole = model._points_with_bc()
+    ld, grad, counts, ms = _pressure_grad(model, None, whole, SHARD_GRAD_REPS)
+    fields = {k: params_to_numpy(v) for k, v in model.fields.items()}
+    host = {k: v.cpu().numpy() for k, v in whole.items()}
+    halves = [{k: np.array_split(v, SHARD_WORLD)[r] for k, v in host.items()}
+              for r in range(SHARD_WORLD)]
+    tag = f"sharded_grad_{backend}"
+    out = launch(_rank_grad, SHARD_WORLD, backend, device,
+                 args=(SHARD_WORLD, backend, fields, halves, SHARD_GRAD_REPS),
+                 deadline_s=SHARD_DEADLINE_S)
+    for r, res in enumerate(out):
+        errs = {"main": abs(float(res["main"]) - ld["main"]) / abs(ld["main"]),
+                "bc": abs(float(res["bc"]) - ld["bc"]) / abs(ld["bc"]),
+                "grad": _rel(res["grad"], grad)}
+        print(f"[{tag}] rank {r}/{SHARD_WORLD} ({res['backend']}, "
+              f"{device}): rel err vs the whole batch {json.dumps(errs)} "
+              f"(bar {SHARD_GRAD_RTOL}); vgl launches of one call "
+              f"{int(res['siren_vgl_forward'])}/"
+              f"{int(res['siren_vgl_backward'])}; {float(res['ms']):.4f} "
+              f"ms per call (whole batch in one process {ms:.4f} ms)",
+              flush=True)
+        if not max(errs.values()) <= SHARD_GRAD_RTOL:
+            raise RuntimeError(f"[{tag}] rank {r} misses the bar")
+        if not (res["siren_vgl_forward"] >= 1
+                and res["siren_vgl_backward"] >= 1):
+            raise RuntimeError(f"[{tag}] rank {r} did not launch the vgl "
+                               "pair")
+    if backend != "gloo":
+        return
+    one = launch(_rank_grad, 1, "nccl", "cuda",
+                 args=(0, "nccl", fields, [host], 2),
+                 deadline_s=SHARD_DEADLINE_S)[0]
+    same = (float(one["main"]) == ld["main"] and float(one["bc"]) == ld["bc"]
+            and np.array_equal(one["grad"], grad))
+    err = max(abs(float(one["main"]) - ld["main"]) / abs(ld["main"]),
+              abs(float(one["bc"]) - ld["bc"]) / abs(ld["bc"]),
+              _rel(one["grad"], grad))
+    print(f"[sharded_grad_nccl1] one-rank {one['backend']} group "
+          f"(size {int(one['size'])}): loss and grad rel err {err:.3e} vs "
+          f"the single process (bar {SHARD_GRAD_RTOL}; "
+          f"{'the same' if same else 'other'} bits); {float(one['ms']):.4f} "
+          f"ms per call", flush=True)
+    if not err <= SHARD_GRAD_RTOL:
+        raise RuntimeError("[sharded_grad_nccl1] differs from the single "
+                           "process")
+
+
+def _rank_entry(argv, kernels):
+    """One rank of a sharded entry-point run: its counters set to 0 just
+    before and read just after; returns them, the model's phase or Picard
+    timings and, for a vortex model, the inlet error and max |u|."""
+    import numpy as np
+    import torch
+    from insr_pde_tpu_torch import __main__ as cli
+    from insr_pde_tpu_torch.ops import block_ell
+    from insr_pde_tpu_torch.ops.siren_forward import siren_forward
+    from insr_pde_tpu_torch.ops.siren_vgl import siren_vgl
+    counters = {"siren_forward": (siren_forward, "launches"),
+                "siren_vgl_forward": (siren_vgl, "fwd_launches"),
+                "siren_vgl_backward": (siren_vgl, "bwd_launches"),
+                "block_ell_mv": (block_ell, "mv_launches"),
+                "block_ell_rmv": (block_ell, "rmv_launches")}
+    for name in kernels:
+        setattr(*counters[name], 0)
+    log = io.StringIO()
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        model = cli.main(argv)
+    torch.cuda.synchronize()
+    out = {"wall": np.asarray(time.perf_counter() - tic),
+           "lines": np.asarray(log.getvalue().splitlines() or [""])}
+    out.update({name: np.asarray(getattr(*counters[name]))
+                for name in kernels})
+    if hasattr(model, "picard_timings"):
+        from insr_pde_tpu_torch.models.vortex import inlet_error
+        vals = model.sample_field(model.cfg.vis_resolution)[0]
+        out.update(inlet=np.asarray(inlet_error(model)),
+                   max_u=np.asarray(float(vals[..., :2].abs().max())),
+                   finite=np.asarray(bool(torch.isfinite(vals).all())),
+                   timings=np.asarray(json.dumps(model.picard_timings)))
+    else:
+        out.update(finite=np.asarray(all(
+            bool(torch.isfinite(w).all() and torch.isfinite(b).all())
+            for p in model.fields.values() for w, b in p)),
+            timings=np.asarray(json.dumps(model.phase_timings)))
+    return out
+
+
+def phase_sharded_fluid(world1_model, backend="gloo", device="cuda:0"):
+    """`python -m insr_pde_tpu_torch fluid` (split, 3x32, -sr 128, T=1,
+    MAX_ITERS Adam iterations per fit) with `--n_devices SHARD_WORLD`: each
+    rank's launches, rank 0's outputs alone, the t=0 fit against analytic
+    Taylor-Green, and ms per Adam iteration per phase beside the world-1
+    main path's."""
+    import numpy as np
+    from insr_pde_tpu_torch.models.examples import taylorgreen_velocity
+    from insr_pde_tpu_torch.ops.sampling import sample_uniform
+    from insr_pde_tpu_torch.parallel import launch
+
+    tag = f"sharded_fluid_{backend}"
+    exp = os.path.join(REPO, "checkpoints", "chip_smoke", tag)
+    shutil.rmtree(exp, ignore_errors=True)
+    argv = SHARD_FLUID_ARGS + [
+        "--n_devices", str(SHARD_WORLD), "--dist_backend", backend,
+        "--proj_dir", os.path.dirname(exp), "--tag", tag]
+    kernels = ("siren_forward", "siren_vgl_forward", "siren_vgl_backward")
+    out = launch(_rank_entry, SHARD_WORLD, backend, device,
+                 args=(argv, kernels), deadline_s=SHARD_DEADLINE_S)
+    for line in out[0]["lines"]:
+        if str(line).startswith(("timestep:", "note:")):
+            print(f"[{tag}] {line}")
+    results = os.path.join(exp, "results")
+    names = sorted(os.listdir(results))
+    npys = [n for n in names if n.endswith(".npy")]
+    with open(os.path.join(exp, "timings.jsonl")) as f:
+        n_timings = len(f.read().splitlines())
+    if npys != ["t000.npy", "t001.npy"] or n_timings != 2:
+        raise RuntimeError(f"[{tag}] outputs {npys}, {n_timings} timing "
+                           "lines: expected rank 0's T=1 outputs alone")
+    grid = sample_uniform(128, 2, flatten=False)
+    tg = taylorgreen_velocity(grid, rescale=True).numpy()
+    u0 = np.load(os.path.join(results, "t000.npy"))
+    rel0, _ = _tg_metrics(u0, tg)
+    print(f"[{tag}] t=0 velocity rel L2 vs analytic Taylor-Green: "
+          f"{rel0:.4e} (bar {TG_REL_L2_BAR})", flush=True)
+    if not rel0 < TG_REL_L2_BAR or not np.isfinite(u0).all():
+        raise RuntimeError(f"[{tag}] the t=0 fit misses the Taylor-Green bar")
+    single = {}
+    for rec in world1_model.phase_timings:
+        if rec["timestep"] <= 1:
+            single[rec["tag"]] = rec["sec"] / max(rec["n_iters"], 1) * 1e3
+    for r, res in enumerate(out):
+        if not bool(res["finite"]):
+            raise RuntimeError(f"[{tag}] rank {r}: a field is not finite")
+        counts = {k: int(res[k]) for k in kernels}
+        least = {"siren_vgl_forward": 1, "siren_vgl_backward": 1}
+        if r == 0:
+            least["siren_forward"] = 2      # write_output at t = 0 and 1
+        print(f"[{tag}] rank {r}: wall {float(res['wall']):.2f}s; kernel "
+              f"launches {json.dumps(counts)}", flush=True)
+        _check_launches(f"{tag} rank {r}", counts, least)
+        per = {rec["tag"]: round(rec["sec"] / max(rec["n_iters"], 1) * 1e3, 4)
+               for rec in json.loads(str(res["timings"]))}
+        print(f"[{tag}] rank {r}: ms per Adam iteration by phase, "
+              f"{SHARD_WORLD} ranks sharing one card ({backend}) "
+              f"{json.dumps(per)}; one process (the main path's t<=1) "
+              f"{json.dumps({k: round(v, 4) for k, v in single.items()})}",
+              flush=True)
+
+
+def _rank_channel(argv, n_iters):
+    """One rank of the sharded channel phase: its rows of the first system
+    against the single-process assembly's padded slice, the iterate after
+    `n_iters` CGLS iterations against the single-process solve's, then the
+    entry point (`_rank_entry`)."""
+    import numpy as np
+    import torch
+    from insr_pde_tpu_torch import starterL
+    from insr_pde_tpu_torch.models.vortex import StreamVortexModel, row_shard
+    from insr_pde_tpu_torch.ops.linalg import block_gram, cgls_sparse_chunked
+    from insr_pde_tpu_torch.ops.precision import resolve_device
+    from insr_pde_tpu_torch.parallel import make_group, psum
+    args = starterL.parse_args(argv[1:])
+    cfg = starterL.build_config(args)
+    group = make_group(args.n_devices, args.dist_backend, "cuda")
+    model = StreamVortexModel(cfg, log=False, device=resolve_device("cuda"),
+                              group=group)
+    u = model.params.u
+    A1, b1 = model.assemble(u)
+    As, bs = model.assemble(u, group=group)
+    counts = [c for _, c in model.block_names_counts()]
+    ref_vals = row_shard(A1.vals, counts, group.rank, group.size)
+    ref_cols = row_shard(A1.cols, counts, group.rank, group.size)
+    ref_b = row_shard(b1, counts, group.rank, group.size)
+    rows = {"rows": np.asarray(As.vals.shape[0]),
+            "rows_whole": np.asarray(A1.vals.shape[0]),
+            "cols_equal": np.asarray(bool(torch.equal(As.cols, ref_cols))),
+            "vals_err": np.asarray(float((As.vals - ref_vals).abs().max())),
+            "b_err": np.asarray(float((bs - ref_b).abs().max()))}
+    kw = dict(maxiter=n_iters, tol=cfg.cgls_tol, chunk=cfg.cgls_chunk,
+              precondition="block", damp=cfg.cgls_damp,
+              restart=cfg.cgls_restart)
+    x0 = u.reshape(-1) * cfg.warm_start
+    x1, info1 = cgls_sparse_chunked(A1, b1, x0, **kw)
+    gram_rel = _rel(psum(block_gram(As), group).cpu().numpy(),
+                    block_gram(A1).cpu().numpy())
+    del A1, b1
+    # with the single process's whitener (the near-singular Gram blocks
+    # amplify the f32 summation order of the Gram's sums into W), then with
+    # the ranks' own: the Gram summed over them, rank 0's eigh, broadcast
+    xs, info = cgls_sparse_chunked(As, bs, x0, whitener=info1["W"],
+                                   group=group, **kw)
+    xw, _ = cgls_sparse_chunked(As, bs, x0, group=group, **kw)
+    rows.update(iterate_rel=np.asarray(_rel(xs.cpu().numpy(),
+                                            x1.cpu().numpy())),
+                iterate_rel_own_w=np.asarray(_rel(xw.cpu().numpy(),
+                                                  x1.cpu().numpy())),
+                gram_rel=np.asarray(gram_rel),
+                iterate_niter=np.asarray(int(info["niter"])))
+    del model, As, bs
+    torch.cuda.empty_cache()
+    return {**rows, **_rank_entry(argv, ("block_ell_mv", "block_ell_rmv"))}
+
+
+def phase_sharded_channel(world1_timings, backend="gloo", device="cuda:0"):
+    """`vortex --preset channel --picard_iters 1 --n_devices SHARD_WORLD`
+    (243,210 rows, block-whitened chunked CGLS): each rank's rows against
+    the single-process assembly's padded slice, the iterate after
+    SHARD_CHANNEL_ITERS iterations against the single-process one, then
+    the whole solve through the entry point: inlet error and max |u| under
+    their bars, at least one mv and one rmv launch per CGLS iteration on
+    each rank."""
+    from insr_pde_tpu_torch.parallel import launch
+    tag = f"sharded_channel_{backend}"
+    out_dir = os.path.join(REPO, "checkpoints", "chip_smoke", tag)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = SHARD_CHANNEL_ARGS + [
+        "--n_devices", str(SHARD_WORLD), "--dist_backend", backend,
+        "--output_path", out_dir, "--log_dir", os.path.join(out_dir, "log")]
+    import torch
+    torch.cuda.empty_cache()
+    out = launch(_rank_channel, SHARD_WORLD, backend, device,
+                 args=(argv, SHARD_CHANNEL_ITERS),
+                 deadline_s=SHARD_DEADLINE_S)
+    for line in out[0]["lines"]:
+        if str(line).strip().startswith(("round:", "lstsq", "note:")):
+            print(f"[{tag}] {str(line).strip()}")
+    if sorted(n for n in os.listdir(out_dir) if n.endswith((".npy", ".npz"))) \
+            != ["field.npy", "vortex_ckpt.npz"]:
+        raise RuntimeError(f"[{tag}] expected rank 0's field and checkpoint")
+    for r, res in enumerate(out):
+        timings = json.loads(str(res["timings"]))
+        iters = sum(t["cgls_iters"] for t in timings)
+        print(f"[{tag}] rank {r}: {int(res['rows'])} of "
+              f"{int(res['rows_whole'])} rows; cols equal to the padded "
+              f"slice: {bool(res['cols_equal'])}, vals max abs diff "
+              f"{float(res['vals_err']):.3e}, rhs {float(res['b_err']):.3e} "
+              f"(bar {SHARD_ROWS_ATOL}); block Gram from the shards rel "
+              f"diff {float(res['gram_rel']):.3e} (bar {SHARD_GRAM_RTOL}); "
+              f"iterate after {int(res['iterate_niter'])} iterations rel "
+              f"diff {float(res['iterate_rel']):.3e} vs one process, with "
+              f"its whitener, {float(res['iterate_rel_own_w']):.3e} with "
+              f"the ranks' own (bar {SHARD_ITERATE_RTOL:.4e} for both: 2x "
+              f"the drift of one process whose rows come in the ranks' "
+              f"order, {SHARD_ORDER_DRIFT})", flush=True)
+        print(f"[{tag}] rank {r}: inlet error {float(res['inlet']):.4e} (bar "
+              f"{INLET_ERROR_BAR}), max |u| {float(res['max_u']):.3f} (bar "
+              f"{MAX_U_BAR}), {iters} CGLS iterations, wall "
+              f"{float(res['wall']):.2f}s", flush=True)
+        for t in timings:
+            print(f"[{tag}] rank {r} picard {t['picard']}: assemble "
+                  f"{t['assemble_s']}s, whiten {t['whiten_s']}s, solve "
+                  f"{t['solve_s']}s ({t['cgls_iters']} iterations, "
+                  f"{t['solve_s'] / max(t['cgls_iters'], 1) * 1e3:.4f} "
+                  f"ms/iter, {SHARD_WORLD} ranks sharing one card, "
+                  f"{backend}), operands {t['operand_mb']} MB")
+        if not (bool(res["cols_equal"])
+                and float(res["vals_err"]) <= SHARD_ROWS_ATOL
+                and float(res["b_err"]) <= SHARD_ROWS_ATOL):
+            raise RuntimeError(f"[{tag}] rank {r}'s rows differ from the "
+                               "padded slice")
+        if not float(res["gram_rel"]) <= SHARD_GRAM_RTOL:
+            raise RuntimeError(f"[{tag}] rank {r}'s summed Gram misses its "
+                               "bar")
+        if not (int(res["iterate_niter"]) == SHARD_CHANNEL_ITERS
+                and float(res["iterate_rel"]) <= SHARD_ITERATE_RTOL
+                and float(res["iterate_rel_own_w"]) <= SHARD_ITERATE_RTOL):
+            raise RuntimeError(f"[{tag}] rank {r}'s iterate misses its bar")
+        if not (bool(res["finite"]) and float(res["inlet"]) <= INLET_ERROR_BAR
+                and float(res["max_u"]) <= MAX_U_BAR):
+            raise RuntimeError(f"[{tag}] rank {r}: the field misses its bars")
+        _check_launches(f"{tag} rank {r}",
+                        {k: int(res[k]) for k in ("block_ell_mv",
+                                                  "block_ell_rmv")},
+                        {"block_ell_mv": iters, "block_ell_rmv": iters})
+    for t in world1_timings:
+        print(f"[{tag}] one process (vortex flags plain run) picard "
+              f"{t['picard']}: solve {t['solve_s']}s ({t['cgls_iters']} "
+              f"iterations, {t['solve_s'] / max(t['cgls_iters'], 1) * 1e3:.4f}"
+              f" ms/iter)", flush=True)
+
+
+def phase_sharded_cards(world1_model, world1_timings):
+    """Phases of the sharded paths over NCCL with one rank per card, where
+    the machine has SHARD_WORLD cards or more."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < SHARD_WORLD:
+        print(f"[sharded_nccl] not run: {n} card(s) here; NCCL with one rank "
+              f"per card, and any scaling across cards, needs "
+              f"{SHARD_WORLD} cards (NCCL refuses two ranks on one device)",
+              flush=True)
+        return
+    phase_sharded_gradient("nccl", "cuda")
+    phase_sharded_fluid(world1_model, "nccl", "cuda")
+    phase_sharded_channel(world1_timings, "nccl", "cuda")
+
+
 def _timed(name, fn, *args):
     tic = time.perf_counter()
     out = fn(*args)
@@ -2009,11 +2439,15 @@ def main() -> int:
            {"elasticity3D": ela3_model, "elasticity2D": ela2_model})
     _timed("vortex cg path", phase_vortex_cg)
     train_models = _timed("vortex train paths", phase_vortex_train)
-    _timed("vortex flags", phase_vortex_flags)
+    flag_timings = _timed("vortex flags", phase_vortex_flags)
     _timed("rbf advection", phase_rbf_advection)
     hash_model = _timed("hashgrid advection path", phase_hashgrid_advection)
     _timed("new paths trace", phase_new_paths_trace, train_models,
            hash_model)
+    _timed("sharded gradient", phase_sharded_gradient)
+    _timed("sharded fluid path", phase_sharded_fluid, split_model)
+    _timed("sharded channel path", phase_sharded_channel, flag_timings)
+    _timed("sharded on cards", phase_sharded_cards, split_model, flag_timings)
     # each kernel's launches from the run of its own path: the elasticity
     # 3D path for siren_forward (its record is the lucy shape), the fluid
     # split main path for the vgl pair, the advection path for advect_fit,

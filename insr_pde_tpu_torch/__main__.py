@@ -9,6 +9,16 @@ t=0 fits the initial condition, t>=1 steps the PDE; outputs, checkpoints,
 `timings.jsonl` and per-timestep `log/tNNN/scalars.jsonl` are written as the
 JAX package writes them. Runs on the card (`--device cuda`, the default)
 unless asked for the CPU; without a card, cuda raises.
+
+Sharded, one process per rank (each fit's collocation points, and each
+vortex system's rows, divided over the ranks):
+
+    torchrun --standalone --nproc_per_node 2 -m insr_pde_tpu_torch fluid \
+        <flags> --n_devices 2 [--dist_backend gloo]
+
+`--n_devices` must be 0 (every rank) or the launch's world size; without a
+launcher 0 and 1 run one process. Only rank 0 writes outputs, checkpoints,
+`timings.jsonl` and `log/`.
 """
 
 from __future__ import annotations
@@ -19,18 +29,19 @@ import sys
 import time
 
 from .config import parse_args
+from .parallel.mesh import make_group
 
 
-def build_model(cfg):
+def build_model(cfg, group=None):
     if cfg.pde == "fluid":
         from .models.fluid import Fluid2DModel
-        return Fluid2DModel(cfg)
+        return Fluid2DModel(cfg, group)
     if cfg.pde == "advection":
         from .models.advection import Advection1DModel
-        return Advection1DModel(cfg)
+        return Advection1DModel(cfg, group)
     if cfg.pde == "elasticity":
         from .models.elasticity import ElasticityModel
-        return ElasticityModel(cfg)
+        return ElasticityModel(cfg, group)
     raise NotImplementedError(f"pde={cfg.pde}")
 
 
@@ -41,13 +52,17 @@ def main(argv=None):
         from .starterL import main as vortex_main
         return vortex_main(argv[1:])
     cfg = parse_args(argv, phase="train")
-    print(cfg)
+    group = make_group(cfg.n_devices, cfg.dist_backend, cfg.device)
+    main_rank = group is None or group.is_main
+    if main_rank:
+        print(cfg)
     # raises on an unported option, a missing mesh or a missing card
     # before any IO
-    model = build_model(cfg)
-    cfg.setup_dirs()
+    model = build_model(cfg, group)
+    if main_rank:
+        cfg.setup_dirs()
 
-    if (cfg.pde == "fluid" and cfg.fluid_step == "split"
+    if (main_rank and cfg.pde == "fluid" and cfg.fluid_step == "split"
             and cfg.n_timesteps > 1):
         print("note: --fluid_step split is reference parity (first-order "
               "splitting bias ~6e-4/step on Taylor-Green, measured by the "
@@ -55,14 +70,16 @@ def main(argv=None):
               "measured 3x lower horizon error there (COMPARISON.md).")
 
     output_folder = os.path.join(cfg.exp_dir, "results")
-    os.makedirs(output_folder, exist_ok=True)
+    if main_rank:
+        os.makedirs(output_folder, exist_ok=True)
 
     start_t = 0
     if cfg.ckpt is not None:
         name = int(cfg.ckpt) if cfg.ckpt.lstrip("-").isdigit() else cfg.ckpt
         model.load_ckpt(name)
         start_t = model.timestep + 1
-        print(f"resumed from checkpoint at timestep {model.timestep}")
+        if main_rank:
+            print(f"resumed from checkpoint at timestep {model.timestep}")
 
     profiler = None
     if cfg.profile_dir:
@@ -82,6 +99,8 @@ def main(argv=None):
             else:
                 model.step()
             dt_wall = time.perf_counter() - tic
+            if not main_rank:
+                continue
             print(f"timestep: {t}  ({dt_wall:.2f}s)")
             with open(timings_path, "a") as f:
                 f.write(json.dumps({"timestep": t, "sec": dt_wall}) + "\n")
@@ -89,6 +108,7 @@ def main(argv=None):
     finally:
         if profiler is not None:
             profiler.__exit__(None, None, None)
+        if profiler is not None and main_rank:
             os.makedirs(cfg.profile_dir, exist_ok=True)
             profiler.export_chrome_trace(
                 os.path.join(cfg.profile_dir, "trace.json"))

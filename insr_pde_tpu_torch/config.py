@@ -136,7 +136,9 @@ class Config:
     debug_nan: bool = False        # per-iteration NaN detection in the solver
     sample_resolution_init: int = 0  # 0 = reference defaults (500 2D / 100 3D)
     chunk_size: int = 250          # Adam iterations per jitted device round-trip
-    n_devices: int = 0             # 0 = all local devices; 1 = single-chip
+    # ranks of a sharded run: 0 = every rank of the launch (one process
+    # without a launcher), else the launch's world size
+    n_devices: int = 0
     mesh_axis: str = "data"        # collocation-sharding mesh axis name
     write_tb: bool = False         # optional tensorboard (JSONL metrics always on)
     backup_sources: bool = True
@@ -155,6 +157,9 @@ class Config:
     # a CPU generator and copy them to the device, so that a run on the
     # card draws the numbers a --device cpu run with the same seed draws
     host_rng: bool = False
+    # PyTorch port: the torch.distributed backend of a sharded run (None:
+    # nccl on the card, gloo on the CPU; gloo for ranks sharing one card)
+    dist_backend: Optional[str] = None
 
     # ---- derived paths ----
     @property
@@ -258,7 +263,13 @@ def _add_common_flags(p: argparse.ArgumentParser):
                         "of a --device cpu run) and copy them to the device")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--debug_nan", action="store_true")
-    p.add_argument("--n_devices", type=int, default=0)
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="ranks to shard each fit's points over: 0 = every "
+                        "rank of the launch (torchrun), else its world size")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a sharded run "
+                        "(default: nccl on the card, gloo on the CPU)")
     p.add_argument("--write_tb", action="store_true")
     p.add_argument("--overwrite", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--no_backup", dest="backup_sources", action="store_false")

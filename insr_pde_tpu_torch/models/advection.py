@@ -14,6 +14,12 @@ hand-written kernel per chunk of Adam iterations, on the CPU its plain
 version; it computes the same loss as `_advect_loss`. Any other network
 (`--nonlinearity relu|elu`) fits `_advect_loss` through the generic
 `Solver`, as the JAX model fits every network.
+
+On more than one rank (`group`) the advect phase runs the generic `Solver`
+for every network, the sine SIREN included: the fused fit is one launch per
+chunk with no reduction across ranks inside it, and the JAX package's
+sharded advection runs its generic `Solver` too. This is the sharded
+configuration, not a fallback; on one rank the fused kernel stays the route.
 """
 
 from __future__ import annotations
@@ -76,8 +82,8 @@ class FusedAdvectSolver(Solver):
 
 
 class Advection1DModel(BaseModel):
-    def __init__(self, cfg):
-        super().__init__(cfg)
+    def __init__(self, cfg, group=None):
+        super().__init__(cfg, group)
         self.vel = cfg.vel
         self.length = cfg.length
         self.net = self._create_field("field", 1, 1)
@@ -85,17 +91,24 @@ class Advection1DModel(BaseModel):
         if not cfg.init_cond:
             raise ValueError("advection requires --init_cond (e.g. example1)")
         self.init_cond_func = get_examples(cfg.init_cond)
-        # one device: the whole collocation budget per iteration
-        self.n_samples = max(1, self.sample_resolution)
-        self.n_boundary = max(self.sample_resolution // 100, 10)
-        # the advect phase's solver: the fused fit for the sine SIREN, else
-        # None (`_run_phase` builds the generic Solver on `_advect_loss`)
+        # the collocation budget per iteration, divided over the ranks of a
+        # sharded run
+        self.n_samples = max(1, self.sample_resolution // self.n_ranks)
+        self.n_boundary = max(
+            max(self.sample_resolution // 100, 10) // self.n_ranks, 2)
+        # the advect phase's solver: the fused fit for the sine SIREN on one
+        # rank, else None (`_run_phase` builds the generic Solver on
+        # `_advect_loss`)
         self.advect_solver = None
-        if self.net._is_siren:
+        if self.net._is_siren and group is None:
             widths = [1] + [w.shape[1] for w, _ in self.fields["field"]]
             self.advect_solver = FusedAdvectSolver(
                 self._advect_tables, widths, dt=self.dt, vel=self.vel,
                 **self._solver_options())
+        elif self.net._is_siren and self.is_main:
+            print(f"note: advection on {group.size} ranks fits the advect "
+                  "phase with the generic Solver (the fused advect_fit "
+                  "kernel has no reduction across ranks)")
 
     # ---- sampling steps (model generator) ----
     def _init_points(self):

@@ -6,6 +6,13 @@ is a list assignment. Each training phase is a cached `Solver`. Every model
 owns one `torch.Generator`, seeded from `cfg.seed`, on its device (on the
 CPU with `--host_rng`, the draws then copied to the device): network init
 and every collocation draw come from it.
+
+Sharded (`group`, `parallel/mesh.py`): every rank draws the network init
+from that generator, so the fields start replicated; rank r > 0 then draws
+its collocation points from a second generator seeded from (cfg.seed, r),
+and rank 0 goes on with the first, so that the ranks' batches differ. At
+world 1 there is no second generator and the streams are unchanged. Only
+rank 0 writes checkpoints and `log/`.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch.utils._pytree import tree_map
 
 from ..config import Config
 from ..ops.precision import resolve_device, set_full_precision
+from ..parallel.mesh import Group
 from ..utils.ckpt import load_pytree, save_pytree
 from ..utils import viz
 from ..utils.logging import MetricsWriter
@@ -28,9 +36,13 @@ from .solver import LossFn, SampleFn, Solver
 
 
 class BaseModel:
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, group: Optional[Group] = None):
         set_full_precision()
         self.cfg = cfg
+        self.group = group
+        # rank 0 (or the only process) writes the outputs
+        self.is_main = group is None or group.is_main
+        self.n_ranks = 1 if group is None else group.size
         self.device = resolve_device(cfg.device)
         self.dt = cfg.dt
         self.max_n_iters = cfg.max_n_iters
@@ -44,9 +56,15 @@ class BaseModel:
         self.early_stop_plateau = cfg.plateau_patience
         self.train_step = 0
 
-        self.generator = torch.Generator(
-            device="cpu" if cfg.host_rng else self.device)
-        self.generator.manual_seed(cfg.seed)
+        gen_device = "cpu" if cfg.host_rng else self.device
+        self.init_generator = torch.Generator(device=gen_device)
+        self.init_generator.manual_seed(cfg.seed)
+        # the collocation draws
+        self.generator = self.init_generator
+        if group is not None and group.rank > 0:
+            seed = np.random.SeedSequence([cfg.seed, group.rank])
+            self.generator = torch.Generator(device=gen_device)
+            self.generator.manual_seed(int(seed.generate_state(1)[0]))
         self.fields: Dict[str, Any] = {}   # name -> parameter list
         self.networks: Dict[str, Any] = {}  # name -> MLP
         self._solvers: Dict[str, Solver] = {}
@@ -59,7 +77,7 @@ class BaseModel:
         net = get_network(self.cfg, in_dim, out_dim)
         self.networks[name] = net
         self.fields[name] = tree_map(lambda t: t.to(self.device),
-                                     net.init(self.generator))
+                                     net.init(self.init_generator))
         return net
 
     # ---- protocol ----
@@ -77,6 +95,8 @@ class BaseModel:
         self.timestep += 1
         if self.tb is not None:
             self.tb.close()
+        if not self.is_main:
+            return
         self.tb = MetricsWriter(
             os.path.join(self.cfg.log_dir, f"t{self.timestep:03d}"),
             write_tb=self.cfg.write_tb)
@@ -94,7 +114,7 @@ class BaseModel:
                     plateau_threshold=self.cfg.plateau_threshold,
                     plateau_factor=self.cfg.plateau_factor,
                     early_stop_min_lr=self.min_lr,
-                    debug_nan=self.cfg.debug_nan)
+                    debug_nan=self.cfg.debug_nan, group=self.group)
 
     def _run_phase(self, tag: str, loss_fn: LossFn, sample_fn: SampleFn,
                    params, aux=None, vis_fn: Optional[Callable] = None,
@@ -146,6 +166,8 @@ class BaseModel:
 
     # ---- checkpointing ----
     def save_ckpt(self, name: Optional[str] = None):
+        if not self.is_main:
+            return
         if name is None:
             path = os.path.join(self.cfg.model_dir,
                                 f"ckpt_step_t{self.timestep:03d}.npz")

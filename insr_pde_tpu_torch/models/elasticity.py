@@ -56,8 +56,8 @@ VIS_SEED_OFFSET = 7919
 
 
 class ElasticityModel(BaseModel):
-    def __init__(self, cfg):
-        super().__init__(cfg)
+    def __init__(self, cfg, group=None):
+        super().__init__(cfg, group)
         self.dim = cfg.dim
         self.net = self._create_field("deformation", self.dim, self.dim)
         self._create_field("deformation_prev", self.dim, self.dim)
@@ -103,9 +103,10 @@ class ElasticityModel(BaseModel):
         if self.use_mesh:
             self._init_mesh(cfg.mesh_path)
 
-        # points per iteration
-        self.n_random = max(1, self.sample_resolution ** self.dim)
-        self.n_fixed = max(1, self.sample_resolution)
+        # points per iteration, divided over the ranks of a sharded run
+        self.n_random = max(1, self.sample_resolution ** self.dim
+                            // self.n_ranks)
+        self.n_fixed = max(1, self.sample_resolution // self.n_ranks)
         # the initialisation fit's resolution: the flag, else the mesh scene's
         # sample resolution, else 500 (2D) / 100 (3D) as the reference
         if cfg.sample_resolution_init:
@@ -114,7 +115,8 @@ class ElasticityModel(BaseModel):
             self.sample_resolution_init = self.sample_resolution
         else:
             self.sample_resolution_init = {2: 500, 3: 100}[self.dim]
-        self.n_random_init = max(1, self.sample_resolution_init ** self.dim)
+        self.n_random_init = max(
+            1, self.sample_resolution_init ** self.dim // self.n_ranks)
         # the box faces' points are drawn only for the constraint terms
         self._draw_faces = (not self.use_mesh
                             and bool(_CONSTRAINTS & set(self.energy)))

@@ -41,8 +41,8 @@ from .examples import get_examples
 
 
 class Fluid2DModel(BaseModel):
-    def __init__(self, cfg):
-        super().__init__(cfg)
+    def __init__(self, cfg, group=None):
+        super().__init__(cfg, group)
         self.vel_net = self._create_field("velocity", 2, 2)
         self._create_field("velocity_prev", 2, 2)
         self.p_net = self._create_field("pressure", 2, 1)
@@ -67,9 +67,11 @@ class Fluid2DModel(BaseModel):
             # bootstrap overwrites it (no random numbers drawn).
             self.fields["pressure_prev"] = self.fields["pressure"]
 
-        # sr^2 collocation points per iteration, ~1% on each boundary pair
-        self.n_samples = max(1, self.sample_resolution ** 2)
-        self.n_boundary = max(self.sample_resolution ** 2 // 100, 2)
+        # sr^2 collocation points per iteration, ~1% on each boundary pair,
+        # divided over the ranks of a sharded run
+        self.n_samples = max(1, self.sample_resolution ** 2 // self.n_ranks)
+        self.n_boundary = max(
+            (self.sample_resolution ** 2 // 100) // self.n_ranks, 2)
 
     # ---- sampling steps (model generator) ----
     def _interior_points(self):

@@ -16,6 +16,14 @@ math equals the per-layer form), with views back into the layer list for the
 loss. The Adam here equals `optax.adam(lr)` (b1 0.9, b2 0.999, eps 1e-8);
 `torch.optim.Adam` is not used because it advances its step count on
 iterations that the latch or the non-finite skip must not count.
+
+Sharded (`group`, `parallel/mesh.py`): each rank draws its own batch
+through its own `sample_fn`, and the loss dict and the flat gradient are
+averaged over the ranks by ONE `all_reduce` of one packed vector per
+iteration (the JAX package's `pmean` under `shard_map`). The finiteness
+test, the plateau update and the early-stop latch then read only reduced
+values, so every rank takes the same branch and the params, broadcast from
+rank 0 at `fit`, stay replicated.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import Group, broadcast, pmean
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor], Any], Dict[str, torch.Tensor]]
 # loss_fn(params, points, aux) -> {"main": scalar, ...}; total loss = sum of
@@ -172,8 +182,9 @@ class Solver:
                  plateau_factor: float = 0.1, plateau_patience: int = 500,
                  plateau_threshold: float = 1e-4, plateau_min_lr: float = 1e-8,
                  early_stop_min_lr: float = 1.1e-8,
-                 debug_nan: bool = False):
+                 debug_nan: bool = False, group: Optional[Group] = None):
         self.loss_fn = loss_fn
+        self.group = group
         self.sample_fn = sample_fn
         self.lr = lr
         self.max_n_iters = max_n_iters
@@ -187,14 +198,27 @@ class Solver:
             early_stop=early_stop,
         )
 
-    def _step(self, state: SolveState, shapes, aux):
-        """One Adam + scheduler iteration; no host synchronisation."""
-        points = self.sample_fn()
-        flat = state.params.detach().requires_grad_(True)
+    def value_and_grad(self, flat: torch.Tensor, shapes, points, aux):
+        """(loss dict, flat gradient) of the loss at `points`, averaged over
+        the group's ranks (each rank passing its own points)."""
+        flat = flat.detach().requires_grad_(True)
         ld = self.loss_fn(unravel(flat, shapes), points, aux)
         total = sum(ld.values())
         (grad,) = torch.autograd.grad(total, flat)
         ld = {k: v.detach() for k, v in ld.items()}
+        if self.group is not None:
+            keys = list(ld)
+            packed = pmean(torch.cat([torch.stack([ld[k] for k in keys]),
+                                      grad]), self.group)
+            ld = dict(zip(keys, packed[:len(keys)]))
+            grad = packed[len(keys):]
+        return ld, grad
+
+    def _step(self, state: SolveState, shapes, aux):
+        """One Adam + scheduler iteration; no host synchronisation (but the
+        all_reduce of a sharded solve)."""
+        ld, grad = self.value_and_grad(state.params, shapes, self.sample_fn(),
+                                       aux)
 
         updates, opt = adam_update(grad, state.opt, self.lr)
         new_params = state.params + updates * state.plateau.scale
@@ -232,7 +256,8 @@ class Solver:
         """Run the solve loop. callback(it, params, chunk_losses) is invoked
         after each chunk (host side)."""
         flat, shapes = ravel(params)
-        flat = flat.detach()
+        # replicated params: every rank starts from rank 0's
+        flat = broadcast(flat.detach(), self.group)
         state = SolveState(flat, adam_init(flat), plateau_init(flat.device))
         history: Dict[str, list] = {}
         it = 0

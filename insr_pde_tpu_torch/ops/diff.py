@@ -4,7 +4,7 @@
 Every operator takes a function mapping ONE point (d,) -> (m,) and a batch of
 points (N, d); `jacfwd`/`vjp` compose per point and `vmap` batches them.
 Input dims are tiny (1-3), so forward mode is the default, and laplace is
-forward-over-reverse.
+forward-over-reverse. `has_nan` is the debug check of a parameter tree.
 """
 
 from __future__ import annotations
@@ -66,3 +66,23 @@ def laplace(fn: Fn, x: torch.Tensor, normalize: bool = False,
 def hessian(fn: Fn, x: torch.Tensor) -> torch.Tensor:
     """Batched Hessian of each output channel, shape (N, m, d, d)."""
     return vmap(jacfwd(jacfwd(fn)))(x)
+
+
+def has_nan(tree) -> torch.Tensor:
+    """Whether any tensor of a parameter tree (nested lists, tuples and
+    dicts of tensors) holds a NaN: a scalar bool tensor, the debug check of
+    the JAX package's `has_nan`."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            leaves.append(torch.isnan(t).any())
+
+    walk(tree)
+    return torch.stack(leaves).any()

@@ -16,6 +16,16 @@ single-device part of `insr_pde_tpu/ops/linalg.py`).
   `ops/block_ell.py`; on CPU tensors they run their plain versions.
 * `block_gram`, `block_whitener_host` (eigendecomposition on the host in
   float64), `_block_apply`, `_prewhiten_x0`.
+* Row-sharded over the ranks of a `parallel.mesh.Group`
+  (`cgls_sparse_chunked(..., group=)`, the JAX package's
+  `cgls_sparse_sharded` and `cgls_sparse_sharded_chunked` in one), on each
+  rank's row shard of vals/cols/b: A x is local; A^T r is the local rmv
+  kernel followed by a `psum`, and so are the row-space inner products;
+  the column-space vectors are replicated and every rank computes them
+  identically from reduced values, so the host's stop test between chunks
+  takes the same branch on every rank. The whitener's Gram blocks are
+  summed over the ranks, rank 0 runs the float64 eigendecomposition and
+  broadcasts W.
 
 The JAX package runs each CG and CGLS loop as a `lax.while_loop` that stops
 when its condition fails. Here every iteration evaluates that condition on
@@ -42,6 +52,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Group, broadcast, psum
 from .block_ell import (TransposeIndex, block_ell_mv, block_ell_rmv,
                         transpose_index, transpose_vals)
 
@@ -97,11 +108,12 @@ class BlockSparse:
         return block_ell_rmv(self.vals, self.cols, r, self.n_blocks,
                              self.transpose(), self.transposed_vals())
 
-    def col_norms(self) -> torch.Tensor:
+    def col_norms(self, group: Optional[Group] = None) -> torch.Tensor:
         """Column 2-norms (exact where a row addresses a block at most
-        once, as the RBF assembly does), (n_blocks * J,)."""
+        once, as the RBF assembly does), (n_blocks * J,); of the whole
+        operator when this one is a rank's row shard of it (`group`)."""
         sq = _pull_blocks(self, lambda V: (V * V).sum(1))
-        return torch.sqrt(sq.reshape(-1))
+        return torch.sqrt(psum(sq.reshape(-1), group))
 
 
 class PaddedSparse(BlockSparse):
@@ -168,16 +180,21 @@ def _whiten_from_gram(G: np.ndarray, eig_floor: float = 1e-6) -> np.ndarray:
     return W
 
 
-def block_whitener_host(A: BlockSparse,
-                        eig_floor: float = 1e-6) -> torch.Tensor:
+def block_whitener_host(A: BlockSparse, eig_floor: float = 1e-6,
+                        group: Optional[Group] = None) -> torch.Tensor:
     """The per-site-block whitener W[b] = G[b]^(-1/2) (floored), f32 on
     A's device. The Gram reduce runs on the device; only the (n_blocks, J,
     J) blocks go to the host, where the eigendecomposition runs in float64
     (f32 eigh is far too inaccurate for these near-singular Grams, whose
-    eigenvalues spread beyond 1e9)."""
-    G = block_gram(A).cpu().numpy().astype(np.float64)
-    W = _whiten_from_gram(G, eig_floor).astype(np.float32)
-    return torch.from_numpy(W).to(A.vals.device)
+    eigenvalues spread beyond 1e9). With a group, A is a rank's row shard:
+    the Gram is summed over the ranks, rank 0 decomposes it and broadcasts
+    W."""
+    G = psum(block_gram(A), group)
+    if group is not None and not group.is_main:
+        return broadcast(torch.empty_like(G), group)
+    W = _whiten_from_gram(G.cpu().numpy().astype(np.float64), eig_floor)
+    return broadcast(torch.from_numpy(W.astype(np.float32)).to(
+        A.vals.device), group)
 
 
 def _prewhiten_x0(W_f64: np.ndarray, x0: torch.Tensor,
@@ -305,17 +322,17 @@ class CGLSState(NamedTuple):
     best_phi: torch.Tensor
 
 
-def _start(mv, rmv, b, y0, d2) -> CGLSState:
+def _start(mv, rmv, b, y0, d2, rows_reduce) -> CGLSState:
     r0 = b - mv(y0)
     s0 = rmv(r0) - d2 * y0
     gamma0 = torch.dot(s0, s0)
-    phi0 = torch.dot(r0, r0) + d2 * torch.dot(y0, y0)
+    phi0 = rows_reduce(torch.dot(r0, r0)) + d2 * torch.dot(y0, y0)
     k = torch.zeros((), dtype=torch.int32, device=b.device)
     return CGLSState(y0, r0, s0, gamma0, k, phi0, y0, phi0)
 
 
 def _iterate(mv, rmv, st: CGLSState, stop2, d2, n: int,
-             maxiter: int) -> CGLSState:
+             maxiter: int, rows_reduce) -> CGLSState:
     """n CGLS iterations of the factored normal equations. Each one takes
     effect only while (gamma > stop2) & (k < maxiter) & (phi < 1e4 *
     best_phi), the JAX while loop's condition; once it fails the state
@@ -324,7 +341,7 @@ def _iterate(mv, rmv, st: CGLSState, stop2, d2, n: int,
     for _ in range(n):
         active = (gamma > stop2) & (k < maxiter) & (phi < 1e4 * bphi)
         q = mv(p)
-        denom = torch.dot(q, q) + d2 * torch.dot(p, p)
+        denom = rows_reduce(torch.dot(q, q)) + d2 * torch.dot(p, p)
         alpha = gamma / torch.where(denom == 0, 1e-30, denom)
         y_n = y + alpha * p
         r_n = r - alpha * q
@@ -332,7 +349,7 @@ def _iterate(mv, rmv, st: CGLSState, stop2, d2, n: int,
         gamma_n = torch.dot(s, s)
         beta = gamma_n / torch.where(gamma == 0, 1e-30, gamma)
         p_n = s + beta * p
-        phi_n = torch.dot(r_n, r_n) + d2 * torch.dot(y_n, y_n)
+        phi_n = rows_reduce(torch.dot(r_n, r_n)) + d2 * torch.dot(y_n, y_n)
         better = phi_n < bphi
         by_n = torch.where(better, y_n, by)
         bphi_n = torch.where(better, phi_n, bphi)
@@ -363,7 +380,8 @@ def _final(st: CGLSState) -> torch.Tensor:
 
 def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
          maxiter: int = 500, tol: float = 1e-8, damp: float = 0.0,
-         check_every: int = 200, restart: bool = False):
+         check_every: int = 200, restart: bool = False,
+         rows_reduce: Optional[Callable] = None):
     """min_x |A x - b|^2 + damp^2 |x|^2 by CGLS (CG on the regularized
     normal equations in factored form).
 
@@ -375,17 +393,23 @@ def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
     iterates do not depend on it. restart=True instead re-enters each such
     chunk from the best iterate with an exactly recomputed residual: not
     the long loop's iterates, but it bounds the f32 conjugacy drift that
-    blows up plain CGLS on the stream systems. Returns (x, info with
+    blows up plain CGLS on the stream systems. rows_reduce: the reduction
+    of a row-space inner product over the row shards (`psum` when the rows
+    are sharded over ranks; At_mv then reduces too). Returns (x, info with
     'niter', 'resnorm' |A^T(Ax-b) - damp^2 x|, 'best_phi')."""
+    if rows_reduce is None:
+        def rows_reduce(v):
+            return v
     d2 = torch.tensor(damp * damp, dtype=b.dtype, device=b.device)
-    st = _start(A_mv, At_mv, b, x0, d2)
+    st = _start(A_mv, At_mv, b, x0, d2, rows_reduce)
     stop2 = torch.tensor((tol ** 2) * float(st.gamma), dtype=b.dtype,
                          device=b.device)
     stop2_host = float(stop2)
     it = 0
     while True:
         st = _iterate(A_mv, At_mv, st, stop2, d2,
-                      max(min(check_every, maxiter - it), 0), maxiter)
+                      max(min(check_every, maxiter - it), 0), maxiter,
+                      rows_reduce)
         new_it, gamma, phi, bphi = _fetch(st)
         if (new_it >= maxiter or gamma <= stop2_host or new_it == it
                 or phi >= 1e4 * bphi):
@@ -394,7 +418,7 @@ def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
         if restart:
             # continue from the best point with an exact residual
             y = torch.where(st.phi <= st.best_phi, st.y, st.best_y)
-            fresh = _start(A_mv, At_mv, b, y, d2)
+            fresh = _start(A_mv, At_mv, b, y, d2, rows_reduce)
             better = fresh.phi < st.best_phi
             st = CGLSState(y, fresh.r, fresh.p, fresh.gamma, st.k, fresh.phi,
                            torch.where(better, y, st.best_y),
@@ -403,12 +427,12 @@ def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
                         "best_phi": st.best_phi}
 
 
-def _jacobi(A: BlockSparse) -> torch.Tensor:
+def _jacobi(A: BlockSparse, group: Optional[Group] = None) -> torch.Tensor:
     """1 / column norm, with columns under 1e-6 of the largest norm dropped
     (scale 0: their coefficients are pinned to zero). A relative cutoff:
     an absolute one lets a 1e-10 column be amplified 1e10x, which destroys
     f32 CGLS on the scaled system."""
-    d = A.col_norms()
+    d = A.col_norms(group)
     return torch.where(d > 1e-6 * torch.max(d), 1.0 / d,
                        torch.zeros_like(d))
 
@@ -417,10 +441,15 @@ def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
                         maxiter: int = 500, tol: float = 1e-8,
                         chunk: int = 200, precondition=True,
                         damp: float = 0.0, restart: bool = False,
-                        whitener: Optional[torch.Tensor] = None):
+                        whitener: Optional[torch.Tensor] = None,
+                        group: Optional[Group] = None):
     """CGLS on a BlockSparse operator in chunks of `chunk` iterations, the
     host reading the state between chunks: without `restart` the iterates
-    equal one long loop's (`cgls`).
+    equal one long loop's (`cgls`). With a group, A and b are this rank's
+    row shard and x0 and the returned x are replicated: A^T r and the
+    row-space inner products are summed over the ranks, the Jacobi scale
+    takes the whole operator's column norms and the block whitener its
+    Gram (`block_whitener_host`).
 
     precondition: False, True (Jacobi column scaling: min |A D y - b|^2 +
     damp^2 |y|^2, x = D y, D = 1 / column norm) or "block" (the
@@ -431,7 +460,8 @@ def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
     W = None
     if precondition == "block":
         tic = time.perf_counter()
-        W = whitener if whitener is not None else block_whitener_host(A)
+        W = (whitener if whitener is not None
+             else block_whitener_host(A, group=group))
         # y0 solves W y0 = x0 per block, so a warm start survives the change
         # of variable (x0 = 0 gives y0 = 0)
         y0 = _prewhiten_x0(W.cpu().numpy().astype(np.float64), x0,
@@ -442,7 +472,7 @@ def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
             return _block_apply(W, v)
     else:
         if precondition:
-            P = _jacobi(A)
+            P = _jacobi(A, group)
             y0 = x0 / torch.where(P == 0, 1.0, P)
         else:
             P = torch.ones(A.n_cols, dtype=b.dtype, device=b.device)
@@ -451,9 +481,11 @@ def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
         def apply_p(v):
             return P * v
 
-    y, info = cgls(lambda v: A.mv(apply_p(v)), lambda r: apply_p(A.rmv(r)),
+    y, info = cgls(lambda v: A.mv(apply_p(v)),
+                   lambda r: apply_p(psum(A.rmv(r), group)),
                    b, y0, maxiter=maxiter, tol=tol, damp=damp,
-                   check_every=chunk, restart=restart)
+                   check_every=chunk, restart=restart,
+                   rows_reduce=lambda v: psum(v, group))
     return apply_p(y), {**info, "t_whiten": t_whiten, "W": W}
 
 
