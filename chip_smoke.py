@@ -13,7 +13,8 @@ result line):
      (3 hidden) ->3 at 43,937 rows, the lucy scene's history nets on 8,000
      volume points + 35,937 vertices; 2->68->2 at 20,000 rows, the 2D
      collide scene; 3->66->3 at 43,937 rows, the bunny and spot widths;
-     within 5e-5), and the fused value+gradient+Laplacian
+     within 5e-5; and at the path shapes of the bunny and spot scenes,
+     3->66->3 at 27,683 and 12,096 rows), and the fused value+gradient+Laplacian
      forward and backward (random cotangents on all three outputs, and the
      L-only cotangents of the pressure loss); two runs of each forward, and
      of the backward for each cotangent kind, must give the same bits at
@@ -71,7 +72,8 @@ result line):
      under torch.profiler (outside the paths' counts);
  13. elasticity 3D path: `python -m insr_pde_tpu_torch elasticity` with the
      flags of scripts/elasticity3Dlucy.sh (SIREN 3x128, -sr 20, -vr 10000,
-     the published lr, dt and energies) on the lucy-scale stand-in
+     the published lr, dt and energies) and --host_rng (the card draws
+     what the port's CPU run draws) on the lucy-scale stand-in
      (`geometry/procedural.statue_tet_mesh(32)`: 35,937 vertices, 163,840
      tets, written by the port's `write_medit`), cut to T=4 and ELA_ITERS
      Adam iterations per fit, in-process, counters set to 0 just before and
@@ -79,12 +81,16 @@ result line):
      t, at least two siren_forward launches per Adam iteration of the step
      fits, the centroid's fall, and z_min and z_mean per t against the JAX
      package's runs of the same cut (mean of 6 seeds, bar 2x their spread
-     at that t); at t=4 the drop reaches the plane z = -2, so the last fit
-     holds the collision term against JAX's too;
+     at that t); then, paired, each fit's Adam iterations equal to, and
+     z_min and z_mean at every t within PAIRED_BARS of, the JAX package
+     run on the port's own draws (ELA_3D_PAIRED); at t=4 the drop reaches
+     the plane z = -2, so the last fit holds the collision term against
+     JAX's too;
  14. elasticity 2D path: the flags of scripts/elasticity2Dcollide.sh
      (SIREN 3x68, -sr 100, sphere collision) cut the same way; checks the
      centroid y's fall after the impulse, and the centroid y and the circle
-     penetration per t against the JAX runs in the same way;
+     penetration per t against the JAX runs in the same way (seed bars,
+     then the paired bars of ELA_2D_PAIRED);
  15. recap: `python -m insr_pde_tpu_torch.recap elasticity` on the 3D
      path's run directory; every re-rendered tNNN_deformation.ply equals
      the training run's byte for byte;
@@ -141,7 +147,29 @@ result line):
      least once per CGLS iteration on each rank;
  26. with two or more cards, phases 23-25 again over NCCL with one rank per
      card; else one line saying they were not run and why;
- 27. one JSON line of kernel records, the nvidia-smi line, and the last
+ 27. paper matrix: `python -m insr_pde_tpu_torch.run_experiments --smoke`
+     in a process of its own (the nine published experiments at smoke
+     size, all ok and exit 0), then the four published scenes no phase
+     above runs (PAPER_SCENES: fluid2DtlgnM, elasticity2Dstretch,
+     elasticity3Dbunny, elasticity3Dspot), each through the entry point at
+     its published widths, point counts, lr and energies with --host_rng,
+     cut in depth only (`paper_args`; bunny and spot on statue_tet_mesh
+     stand-ins), counters set to 0 just before and read just after each:
+     finite fields; the multi-scale Taylor-Green t=0 fit under the fluid
+     bar against `taylorgreen_multi_velocity`, the vgl pair once per
+     pressure iteration; the elasticity scenes' SIREN forward twice per
+     step iteration and its last output within ELA_SIREN_ATOL of the plain
+     forward; every fit's iterations and every statistic at every t held
+     to the JAX package run on the port's draws (PAPER_PAIRED,
+     PAIRED_BARS);
+ 28. vortex truth: starterL.py's default system (one Picard iteration)
+     solved by scipy's f64 LSQR (block-preconditioned, products on the card
+     in f64; `vortex_truth`) and by the port's f32 CGLS, CG and
+     block-whitened CGLS at 2,000 iterations; prints each answer's f64
+     |A x - b|, inlet error and per-block rms and its gap to the f64
+     answer; LSQR must converge (istop 1 or 2) and no f32 residual may be
+     below its;
+ 29. one JSON line of kernel records, the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}. siren_forward's record is the lucy
      shape, its launches those of the elasticity 3D path.
 
@@ -388,7 +416,7 @@ ELA_3D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
                "--ratio_kinematics", "1e0", "-f_ext_x", "0", "-f_ext_y", "0",
                "-f_ext_z=-2e1", "-T_ext", "10", "--plane_height",
                str(ELA_PLANE), "--use_mesh", "1", "--early_stop",
-               "--no_backup"]
+               "--no_backup", "--host_rng"]
 ELA_2D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
                "68", "-sr", "100", "-vr", "100", "-T", str(ELA_STEPS),
                "--dt", "0.1", "--max_n_iters", str(ELA_ITERS), "--lr",
@@ -396,13 +424,17 @@ ELA_2D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
                "collision_sphere", "external", "volume", "--ratio_volume",
                "1e3", "--ratio_arap", "2e1", "--ratio_collide", "1e4",
                "--ratio_kinematics", "1e1", "-f_ext_x", "0", "-f_ext_y=-2e2",
-               "-T_ext", "2", "--early_stop", "--no_backup"]
+               "-T_ext", "2", "--early_stop", "--no_backup", "--host_rng"]
 # The JAX package at the same cut on a CPU, seeds 0-5
 # (`python tests/elasticity_reference_jax.py 3d|2d`, PERF.md section 6):
 # per quantity and t = 0..ELA_STEPS, the mean over the seeds and their
 # spread (max - min). The port's value at each t must lie within 2x that
 # t's spread of that t's mean. The 3D fit at t=4, the first in contact
 # with the plane, spreads ~25x wider over the seeds than those before it.
+# The 2D penetration at t=0 also takes a seventh JAX run, the paired one
+# on the port's draws (ELA_2D_PAIRED: 0.004204989): the six seeds all read
+# exactly 0 there, a bar of zero width that JAX itself misses on other
+# draws.
 ELA_3D_JAX = {
     "z_min": ((-1.161975, -1.255353, -1.454716, -1.75446, -1.968614),
               (0.003604, 0.003179, 0.003423, 0.003427, 0.08608)),
@@ -414,12 +446,144 @@ ELA_2D_JAX = {
     "centroid_y": ((-2.931183e-05, -0.08543724, -0.2396635, -0.3653672,
                     -0.4647207),
                    (8.682e-05, 0.006354, 0.01823, 0.02926, 0.03935)),
-    "penetration": ((0, 0.009386999, 0.01569503, 0.01011736, 0.007997869),
-                    (0, 0.01137, 0.004588, 0.003203, 0.001631)),
+    "penetration": ((0.0006007127, 0.009386999, 0.01569503, 0.01011736,
+                     0.007997869),
+                    (0.004204989, 0.01137, 0.004588, 0.003203, 0.001631)),
 }
 # the width-128 bar of phase_kernels, also held by the elasticity paths'
 # last output against the plain forward of the final field
 ELA_SIREN_ATOL = 5e-5
+
+# The four published scenes that no phase above runs (`paper_matrix`):
+# their flags are the port's experiment matrix at its published setting
+# (`run_experiments.experiment_args(..., smoke=False)`) with PAPER_FLAGS
+# set over them: the cut in depth (T and Adam iterations per fit) and, in
+# 3D, the published -vr 10000 (the matrix writes 2,000); the matrix's
+# `--sample_resolution_init` is dropped, so that every init fit takes the
+# published scripts' points (2D: 500^2 + 500^2; 3D: -sr 20, 8,000 volume
+# points + every vertex). Widths, -sr, lr and energies as published, with
+# --host_rng. bunny.mesh (18,592 vertices, 76,854 tets) and spot.mesh
+# (~1/5 of bunny) are not in the repo: the scenes run on the stand-ins
+# statue_tet_mesh(26) (19,683 vertices, 87,880 tets) and (15) (4,096,
+# 16,875). The JAX reference runs (tests/elasticity_reference_jax.py
+# paired, tests/vortex_hashgrid_reference_jax.py tlgnM) take `paper_args`.
+PAPER_SCENES = ("fluid2DtlgnM", "elasticity2Dstretch", "elasticity3Dbunny",
+                "elasticity3Dspot")
+PAPER_MESH_N = {"elasticity3Dbunny": 26, "elasticity3Dspot": 15}
+PAPER_FLAGS = {
+    "fluid2DtlgnM": {"-T": 1, "--max_n_iters": MAX_ITERS},
+    "elasticity2Dstretch": {"-T": 1, "--max_n_iters": ELA_ITERS},
+    "elasticity3Dbunny": {"-T": ELA_STEPS, "--max_n_iters": ELA_ITERS,
+                          "-vr": 10000},
+    "elasticity3Dspot": {"-T": ELA_STEPS, "--max_n_iters": ELA_ITERS,
+                         "-vr": 10000},
+}
+
+
+# The JAX package on the CPU on the port's own draws, the port's runs
+# above (`python tests/elasticity_reference_jax.py paired SCENE`, `python
+# tests/vortex_hashgrid_reference_jax.py tlgnM`, PERF.md section 6): per
+# fit its Adam iterations, per t each statistic (`elasticity_stats`). The
+# card's run must take JAX's iterations in every fit, and each statistic
+# must lie within PAIRED_BARS[scene][key] = (rtol per t, atol) of JAX's
+# value v: |card - v| <= rtol_t |v| + atol.
+ELA_3D_PAIRED = {
+    "iters": (300, 300, 300, 300, 300),
+    "z_min": (-1.160587, -1.254972, -1.454399, -1.754132, -1.909398),
+    "z_mean": (-0.08319227572545006, -0.18295377830506998,
+               -0.38272184881468096, -0.6824885668633128, -0.837809646646494),
+}
+ELA_2D_PAIRED = {
+    "iters": (300, 300, 300, 300, 300),
+    "centroid_y": (7.183735294117602e-05, -0.08473760009803921,
+                   -0.2352018194117647, -0.3532316167647059,
+                   -0.4461655787254902),
+    "penetration": (0.004204989141841531, 0.009913464478482958,
+                    0.01700690472567401, 0.011274805279040234,
+                    0.008667675942623188),
+}
+PAPER_PAIRED = {
+    "fluid2DtlgnM": {
+        "iters": (500, 500, 500, 500),
+        "max_u": (0.9593201223424074, 0.9467746899722624),
+        "energy": (0.06380387568813183, 0.06036877670490654),
+    },
+    "elasticity2Dstretch": {
+        "iters": (300, 300),
+        "right_x": (0.99988494, 2.693095860000001),
+        "left_x": (-0.9998043899999999, -0.9066858999999998),
+    },
+    "elasticity3Dbunny": {
+        "iters": (300, 300, 300, 300, 300),
+        "z_min": (-1.162132, -1.654941, -1.999766, -2.015646, -2.018134),
+        "z_mean": (-0.12938270730721288, -0.6293888775056429,
+                   -0.9744094202742309, -1.1396986963244957,
+                   -1.2204344908870397),
+    },
+    "elasticity3Dspot": {
+        "iters": (300, 300, 300, 300, 300),
+        "z_min": (-1.16123, -1.655064, -1.992565, -2.010495, -2.010072),
+        "z_mean": (-0.2741630871169126, -0.7741548074631102,
+                   -1.1116895716515325, -1.2226080991061292,
+                   -1.2628571274829739),
+    },
+}
+# Each bar, per t: 2x the larger of two gaps relative to JAX's value, the
+# port's CPU run against JAX on the same draws and the card against the
+# port's CPU run (PERF.md section 6), rounded up to two digits, and at
+# least 1e-4; atol 1e-6 (coordinates are O(1)) keeps the quantities near 0
+# (the 2D centroid at t=0) out of a relative bar's reach of rounding.
+# Before the first contact the gaps are ~1e-6 and the bars 1e-4; contact
+# amplifies f32 rounding to a few percent (10% in the lucy scene's first
+# contact, at t=4).
+PAIRED_BARS = {
+    "elasticity3D": {
+        "z_min": ((0.0001, 0.0001, 0.0001, 0.0001, 0.053), 1e-06),
+        "z_mean": ((0.0001, 0.0001, 0.0001, 0.0001, 0.12), 1e-06),
+    },
+    "elasticity2D": {
+        "centroid_y": ((0.0001, 0.0001, 0.00016, 0.00015, 0.00021), 1e-06),
+        "penetration": ((0.0001, 0.0001, 0.0053, 0.018, 0.016), 1e-06),
+    },
+    "fluid2DtlgnM": {
+        "max_u": ((0.0001, 0.0001), 1e-06),
+        "energy": ((0.0001, 0.0001), 1e-06),
+    },
+    "elasticity2Dstretch": {
+        "right_x": ((0.0001, 0.00087), 1e-06),
+        "left_x": ((0.0001, 0.035), 1e-06),
+    },
+    "elasticity3Dbunny": {
+        "z_min": ((0.0001, 0.0001, 0.025, 0.0062, 0.0081), 1e-06),
+        "z_mean": ((0.0001, 0.0001, 0.052, 0.09, 0.046), 1e-06),
+    },
+    "elasticity3Dspot": {
+        "z_min": ((0.0001, 0.0001, 0.0013, 0.0055, 0.0096), 1e-06),
+        "z_mean": ((0.0001, 0.0001, 0.0022, 0.0074, 0.013), 1e-06),
+    },
+}
+# the smoke matrix (`run_experiments --smoke`, paper_matrix) in a process
+# of its own, within this many seconds
+PAPER_SMOKE_TIMEOUT_S = 400
+# phase vortex_truth: the JAX tool's LSQR budget
+VORTEX_TRUTH_ITERS = 40000
+
+
+def paper_args(name, mesh_path=None):
+    """The entry point's flags of one of PAPER_SCENES (above); `mesh_path`
+    names the 3D scenes' mesh file."""
+    import tempfile
+    from insr_pde_tpu_torch.run_experiments import experiment_args
+    with tempfile.TemporaryDirectory() as tmp:
+        args = list(experiment_args(tmp, smoke=False)[name])
+    if "--sample_resolution_init" in args:
+        i = args.index("--sample_resolution_init")
+        del args[i:i + 2]
+    for flag, value in PAPER_FLAGS[name].items():
+        args[args.index(flag) + 1] = str(value)
+    if mesh_path is not None:
+        args[args.index("--mesh_path") + 1] = mesh_path
+    return args + ["--no_backup", "--host_rng"]
 
 
 def advect_rel_l2(u, vr, length, vel, dt, t):
@@ -633,8 +797,17 @@ def phase_kernels():
         ("spot_3x66_43937", MLP(3, 3, 3, 66), rand_coords(43937, 3, 2.0),
          ELA_SIREN_ATOL),
     ]
+    cases = [case + (gen,) for case in cases]
+    # the history nets of paper_matrix's 3D scenes (8,000 volume points +
+    # every vertex of the bunny and the spot stand-ins), from a generator of
+    # their own so that the cases above keep their inputs
+    gen_path = torch.Generator(device=dev)
+    gen_path.manual_seed(1)
+    for name, n in (("bunny_3x66_27683", 27683), ("spot_3x66_12096", 12096)):
+        x = (torch.rand((n, 3), generator=gen_path, device=dev) * 2 - 1) * 2
+        cases.append((name, MLP(3, 3, 3, 66), x, ELA_SIREN_ATOL, gen_path))
     record = None
-    for name, net, x, atol in cases:
+    for name, net, x, atol, gen in cases:
         params = net.init(gen)
         out = siren_forward(params, x)
         again = siren_forward(params, x)
@@ -1579,13 +1752,13 @@ def phase_vortex_trace(models, iters: int = 200):
         _trace(f"{tag} CGLS chunk (precondition {precond})", chunk, iters)
 
 
-def _ela_outputs(tag, exp_dir, n_points, dim):
+def _ela_outputs(tag, exp_dir, n_points, dim, steps=ELA_STEPS):
     """Every t's PLY and .npy points (finite, (n_points, dim)) and the last
     checkpoint; returns the points per t."""
     import numpy as np
     results = os.path.join(exp_dir, "results")
     pts = []
-    for t in range(ELA_STEPS + 1):
+    for t in range(steps + 1):
         stem = os.path.join(results, f"t{t:03d}_deformation")
         for suffix in (".ply", ".npy"):
             if not os.path.exists(stem + suffix):
@@ -1595,7 +1768,7 @@ def _ela_outputs(tag, exp_dir, n_points, dim):
             raise RuntimeError(f"[{tag}] t{t:03d}: points {p.shape} (expected "
                                f"{(n_points, dim)}) or non-finite values")
         pts.append(p)
-    ckpt = os.path.join(exp_dir, "model", f"ckpt_step_t{ELA_STEPS:03d}.npz")
+    ckpt = os.path.join(exp_dir, "model", f"ckpt_step_t{steps:03d}.npz")
     if not os.path.exists(ckpt):
         raise RuntimeError(f"[{tag}] missing checkpoint {ckpt}")
     return pts
@@ -1624,7 +1797,7 @@ def _ela_against_jax(tag, stats, jax_ref):
                 raise RuntimeError(f"[{tag}] t={t} {key} misses the JAX bar")
 
 
-def _ela_run(tag, args, dim):
+def _ela_run(tag, args, dim, steps=ELA_STEPS):
     """One elasticity run through the entry point; checks its fields,
     outputs, the kernel's launches (>= 2 per Adam iteration of the step
     fits, the history nets) and that the last output went through the
@@ -1632,19 +1805,19 @@ def _ela_run(tag, args, dim):
     import numpy as np
     from insr_pde_tpu_torch.ops.siren_forward import siren_forward_reference
     counts, model, exp_dir, wall = _run_entry(tag, args)
-    pts = _ela_outputs(tag, exp_dir, model.sample_vis.shape[0], dim)
+    pts = _ela_outputs(tag, exp_dir, model.sample_vis.shape[0], dim, steps)
     x = model.sample_vis
     plain = (siren_forward_reference(model.fields["deformation"], x)
              + x).cpu().numpy()
     err = float(np.abs(pts[-1] - plain).max())
-    print(f"[{tag}] t={ELA_STEPS} output ({x.shape[0]} points) vs plain "
+    print(f"[{tag}] t={steps} output ({x.shape[0]} points) vs plain "
           f"forward of the final field: max abs err {err:.3e}")
     if not err < ELA_SIREN_ATOL:
         raise RuntimeError(f"[{tag}] kernel output disagrees with the plain "
                            "forward of the final field")
     step_iters = sum(r["n_iters"] for r in model.phase_timings
                      if r["tag"] == "solve_deformation")
-    print(f"[{tag}] wall {wall:.2f}s for T={ELA_STEPS} (init + {ELA_STEPS} "
+    print(f"[{tag}] wall {wall:.2f}s for T={steps} (init + {steps} "
           f"steps, up to {ELA_ITERS} Adam iterations per fit)")
     for rec in model.phase_timings:
         print(f"[{tag}] t={rec['timestep']} {rec['tag']:18s} "
@@ -1683,6 +1856,8 @@ def phase_elasticity_3d():
     print(f"[elasticity3D] t={ELA_STEPS} z_min {z_end:.6f}: the plane z = "
           f"{ELA_PLANE} holds the drop")
     _ela_against_jax("elasticity3D", stats, ELA_3D_JAX)
+    _against_paired("elasticity3D", model, stats, ELA_3D_PAIRED,
+                    PAIRED_BARS["elasticity3D"])
     return counts, model, exp_dir
 
 
@@ -1699,7 +1874,34 @@ def phase_elasticity_2d():
           f"t=0 after the impulse); circle penetration per t "
           f"{[round(v, 6) for v in stats['penetration']]}")
     _ela_against_jax("elasticity2D", stats, ELA_2D_JAX)
+    _against_paired("elasticity2D", model, stats, ELA_2D_PAIRED,
+                    PAIRED_BARS["elasticity2D"])
     return counts, model
+
+
+def _against_paired(tag, model, stats, ref, bars):
+    """Each fit's Adam iterations equal to the JAX package's on the same
+    draws (`ref["iters"]`), and each statistic of `bars` ({key: (rtol per
+    t, atol)}) at every t within its bar of JAX's value v: |got - v| <=
+    rtol_t |v| + atol."""
+    iters = [int(r["n_iters"]) for r in model.phase_timings]
+    if iters != list(ref["iters"]):
+        raise RuntimeError(f"[{tag}] Adam iterations per fit {iters}, JAX "
+                           f"{list(ref['iters'])} on the same draws")
+    print(f"[{tag}] Adam iterations per fit {iters}, as JAX's on the same "
+          "draws", flush=True)
+    for key, (rtols, atol) in bars.items():
+        for t, (got, want, rtol) in enumerate(zip(stats[key], ref[key],
+                                                  rtols, strict=True)):
+            bar = rtol * abs(want) + atol
+            diff = abs(got - want)
+            print(f"[{tag}] t={t} {key} {got!r}: JAX on the same draws "
+                  f"{want!r}, |diff| {diff:.3e} (relative "
+                  f"{diff / max(abs(want), 1e-30):.3e}; bar {bar:.3e} = "
+                  f"{rtol:g} x |JAX| + {atol:g})", flush=True)
+            if not diff <= bar:
+                raise RuntimeError(f"[{tag}] t={t} {key} misses its paired "
+                                   "bar")
 
 
 def phase_recap(exp_dir):
@@ -2401,6 +2603,135 @@ def phase_sharded_cards(world1_model, world1_timings):
     phase_sharded_channel(world1_timings, "nccl", "cuda")
 
 
+def phase_paper_matrix():
+    """(i) `python -m insr_pde_tpu_torch.run_experiments --smoke` in a
+    process of its own: exit 0, all nine experiments ok. (ii) PAPER_SCENES
+    through the entry point (`paper_args`), counters set to 0 just before
+    and read just after each: finite fields; fluid2DtlgnM's t=0 fit
+    against `taylorgreen_multi_velocity` under the fluid bar, the vgl pair
+    launched once per pressure iteration; the elasticity scenes' outputs,
+    the SIREN forward launched twice per step iteration and its last
+    output against the plain forward; every statistic at every t against
+    the JAX package's run on the same draws (PAPER_PAIRED, PAIRED_BARS)."""
+    import numpy as np
+    from insr_pde_tpu_torch.elasticity_stats import run_stats
+    from insr_pde_tpu_torch.geometry import statue_tet_mesh, write_medit
+    from insr_pde_tpu_torch.models.examples import taylorgreen_multi_velocity
+    from insr_pde_tpu_torch.ops.sampling import sample_uniform
+
+    proj = os.path.join(REPO, "checkpoints", "chip_smoke", "matrix")
+    shutil.rmtree(proj, ignore_errors=True)
+    tic = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "insr_pde_tpu_torch.run_experiments",
+         "--smoke", "--proj_dir", proj], cwd=REPO, capture_output=True,
+        text=True, timeout=PAPER_SMOKE_TIMEOUT_S)
+    records = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            records.update(json.loads(line))
+            print(f"[paper_matrix] smoke {line}", flush=True)
+    experiments = {k: v for k, v in records.items() if k != "summary"}
+    if (proc.returncode != 0 or len(experiments) != 9
+            or not all(r["ok"] for r in experiments.values())):
+        raise RuntimeError(f"[paper_matrix] the smoke matrix: exit "
+                           f"{proc.returncode}, {records}; stderr "
+                           f"{proc.stderr[-2000:]}")
+    print(f"[paper_matrix] smoke matrix: 9/9 ok in "
+          f"{time.perf_counter() - tic:.1f}s", flush=True)
+
+    name = "fluid2DtlgnM"
+    args = paper_args(name)
+    print(f"[{name}] the published flags cut to T=1 and {MAX_ITERS} Adam "
+          f"iterations a fit: {' '.join(args)}", flush=True)
+    counts, model, exp_dir, wall = _run_entry(name, args)
+    vr = model.cfg.vis_resolution
+    u0 = np.load(os.path.join(exp_dir, "results", "t000.npy"))
+    ref0 = taylorgreen_multi_velocity(
+        sample_uniform(vr, 2, flatten=False)).numpy()
+    rel0 = float(np.linalg.norm(u0 - ref0) / np.linalg.norm(ref0))
+    print(f"[{name}] t=0 velocity rel L2 vs taylorgreen_multi_velocity on "
+          f"the {vr}x{vr} grid: {rel0:.4e} (bar {TG_REL_L2_BAR}); wall "
+          f"{wall:.2f}s", flush=True)
+    if not rel0 < TG_REL_L2_BAR:
+        raise RuntimeError(f"[{name}] the t=0 fit misses its bar")
+    stats = run_stats("fluid", exp_dir)
+    if not all(math.isfinite(v) for st in stats for v in st.values()):
+        raise RuntimeError(f"[{name}] non-finite statistics {stats}")
+    pressure = sum(r["n_iters"] for r in model.phase_timings
+                   if r["tag"] == "solve_pressure")
+    _check_launches(name, counts, {"siren_vgl_forward": pressure,
+                                   "siren_vgl_backward": pressure,
+                                   "siren_forward": 2})
+    _against_paired(name, model, {k: [st[k] for st in stats]
+                                  for k in stats[0]},
+                    PAPER_PAIRED[name], PAIRED_BARS[name])
+
+    for name, dim, kind in (("elasticity2Dstretch", 2, "stretch"),
+                            ("elasticity3Dbunny", 3, "3d"),
+                            ("elasticity3Dspot", 3, "3d")):
+        mesh = None
+        if dim == 3:
+            mesh = os.path.join(REPO, "checkpoints", "chip_smoke",
+                                f"statue{PAPER_MESH_N[name]}.mesh")
+            V, T = statue_tet_mesh(PAPER_MESH_N[name])
+            write_medit(mesh, V, {"tetra": T})
+            print(f"[{name}] stand-in mesh statue_tet_mesh("
+                  f"{PAPER_MESH_N[name]}): {len(V)} vertices, {len(T)} "
+                  "tets", flush=True)
+        args = paper_args(name, mesh)
+        steps = int(args[args.index("-T") + 1])
+        print(f"[{name}] the published flags cut to T={steps} and "
+              f"{ELA_ITERS} Adam iterations a fit: {' '.join(args)}",
+              flush=True)
+        _, model, exp_dir = _ela_run(name, args, dim, steps)
+        _against_paired(name, model, _ela_stats(kind, exp_dir),
+                        PAPER_PAIRED[name], PAIRED_BARS[name])
+
+
+def phase_vortex_truth():
+    """starterL.py's default system (VORTEX_ARGS, one Picard iteration)
+    solved four ways: scipy's f64 LSQR on A P (P the f64 block whitener of
+    `vortex_truth`, products on the card in f64) within VORTEX_TRUTH_ITERS,
+    started from the dense f64 row-Gram solution (from 0 it stops at the
+    limit: |Ax-b| 0.7435 after 40,000 iterations, PERF.md section 6), and
+    the port's f32 CGLS (Jacobi), CG and block-whitened CGLS at
+    cgls_maxiter. Prints each answer's |A x - b| recomputed in f64, inlet
+    error, per-block rms and gaps to the f64 answer's. Bars: LSQR converged
+    (istop 1 or 2) and no f32 residual below LSQR's / (1 + 1e-6)."""
+    from insr_pde_tpu_torch import vortex_truth
+    log_dir = os.path.join(REPO, "checkpoints", "chip_smoke", "vortex_truth")
+    # VORTEX_ARGS are starterL.py's defaults
+    model = vortex_truth.build_model(vortex_truth.parser().parse_args(
+        ["--scene", "starterL", "--log_dir", log_dir]))
+    rec = vortex_truth.run(model, VORTEX_TRUTH_ITERS, model.cfg.cgls_damp,
+                           ("cgls", "cg", ("cgls", "block")),
+                           lsqr_precondition="block", lsqr_start="rows")
+    truth = rec["lsqr64"]
+    for tag in ("lsqr64", "cgls", "cg", "cgls_block"):
+        r = rec[tag]
+        blocks = ", ".join(f"{k} {v:.4e}" for k, v in r["blocks"].items())
+        print(f"[vortex_truth] {tag}: |Ax-b| (f64) {r['residual64']!r}, "
+              f"inlet error {r['inlet_error']!r}; block rms {blocks}",
+              flush=True)
+    if truth["istop"] not in (1, 2):
+        raise RuntimeError(f"[vortex_truth] LSQR did not converge: istop "
+                           f"{truth['istop']} after {truth['itn']} "
+                           "iterations")
+    for tag in ("cgls", "cg", "cgls_block"):
+        r = rec[tag]
+        print(f"[vortex_truth] {tag} ({r['iters']} iterations, "
+              f"{r['sec']:.2f}s) against the f64 answer: residual "
+              f"{r['gap']['residual64']:+.4e}, inlet error "
+              f"{r['gap']['inlet_error']:+.4e}, largest block "
+              f"{r['gap']['blocks']:.4e} (relative)", flush=True)
+        if not r["residual64"] >= truth["residual64"] / (1 + 1e-6):
+            raise RuntimeError(f"[vortex_truth] {tag}'s residual "
+                               f"{r['residual64']} is below the f64 "
+                               f"least-squares answer's {truth['residual64']}")
+    return rec
+
+
 def _timed(name, fn, *args):
     tic = time.perf_counter()
     out = fn(*args)
@@ -2448,6 +2779,8 @@ def main() -> int:
     _timed("sharded fluid path", phase_sharded_fluid, split_model)
     _timed("sharded channel path", phase_sharded_channel, flag_timings)
     _timed("sharded on cards", phase_sharded_cards, split_model, flag_timings)
+    _timed("paper matrix", phase_paper_matrix)
+    _timed("vortex truth", phase_vortex_truth)
     # each kernel's launches from the run of its own path: the elasticity
     # 3D path for siren_forward (its record is the lucy shape), the fluid
     # split main path for the vgl pair, the advection path for advect_fit,

@@ -12,7 +12,9 @@ least-squares solve (`models/vortex.py`, entry `starterL.py`) and the RBF
 advection solve, with their TPU kernels as CUDA kernels under `csrc/`, and
 the sharding of fits and least-squares rows over ranks of
 `torch.distributed` (`parallel/`, `--n_devices`). Entry points: `python -m
-insr_pde_tpu_torch {fluid,advection,elasticity,vortex} …`.
+insr_pde_tpu_torch {fluid,advection,elasticity,vortex} …`; the JAX system's
+yardsticks: `run_experiments` (the paper-experiment matrix), `vortex_truth`
+(the f64 least-squares truth) and `vortex_sweep`.
 """
 
 __version__ = "0.1.0"

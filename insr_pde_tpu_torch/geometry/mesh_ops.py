@@ -82,9 +82,13 @@ def volume_weighted_distribution(V, T) -> torch.Tensor:
 def _categorical(generator: torch.Generator, probs: torch.Tensor,
                  n: int) -> torch.Tensor:
     """n indices drawn with the given probabilities: inverse CDF of a
-    uniform drawn on the generator's device, on the device of `probs`."""
-    cdf = torch.cumsum(probs, dim=0)
-    u = _rand(generator, (n,), probs.dtype, probs.device) * cdf[-1]
+    uniform drawn on the generator's device, on the device of `probs`.
+    The CDF is summed in float64: a float32 scan's rounding depends on its
+    order (the card's parallel scan differs from the CPU's and from run to
+    run), and over ~1e5 elements it moves the boundaries by more than an
+    element's width, so the same uniforms would pick other elements."""
+    cdf = torch.cumsum(probs.double(), dim=0)
+    u = _rand(generator, (n,), probs.dtype, probs.device).double() * cdf[-1]
     idx = torch.searchsorted(cdf, u, right=True)
     return torch.clamp(idx, max=probs.shape[0] - 1)
 

@@ -328,7 +328,8 @@ def test_port_imports_no_jax():
         "          'geometry.procedural', 'models.elast_losses',\n"
         "          'models.elasticity', 'utils.io', 'recap',\n"
         "          'models.encodings', 'models.rbf_advection',\n"
-        "          'parallel', 'parallel.mesh'):\n"
+        "          'parallel', 'parallel.mesh', 'run_experiments',\n"
+        "          'vortex_truth', 'vortex_sweep'):\n"
         "    assert 'insr_pde_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -233,6 +233,23 @@ def test_categorical_clamps_to_the_last_element():
     assert tops._categorical(g, probs, 1000).max().item() <= 2
 
 
+def test_categorical_is_the_float64_inverse_cdf():
+    """The element draws are numpy's float64 inverse CDF of the same
+    uniforms, index for index, also over 163,840 elements (the lucy-scale
+    stand-in's tet count), where a float32 running sum would move the
+    boundaries by more than an element."""
+    rng = np.random.default_rng(0)
+    probs = torch.from_numpy(rng.random(163_840).astype(np.float32))
+    probs = probs / probs.sum()
+    u = torch.rand((20_000,), generator=_gen(4), dtype=torch.float32)
+    cdf = np.cumsum(probs.numpy().astype(np.float64))
+    want = np.minimum(np.searchsorted(cdf, u.numpy().astype(np.float64)
+                                      * cdf[-1], side="right"),
+                      len(cdf) - 1)
+    got = tops._categorical(_gen(4), probs, 20_000)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_samplers_are_deterministic_per_generator_and_on_its_device():
     V, T = map(torch.from_numpy, _mesh("tet"))
     a = tgeo.sample_mesh(_gen(5), V, T, 64)

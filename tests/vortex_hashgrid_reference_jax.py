@@ -1,7 +1,8 @@
 """The JAX package's runs that set the bars of the port's chip check
 (`chip_smoke.py`, phases `vortex_cg`, `vortex_train`, `stream_train`,
-`rbf_advection`, `hashgrid_advection` and the hash check), on the CPU, on
-the port's own random draws.
+`rbf_advection`, `hashgrid_advection`, the hash check and `paper_matrix`'s
+multi-scale Taylor-Green scene, `tlgnM`), on the CPU, on the port's own
+random draws.
 
     python tests/vortex_hashgrid_reference_jax.py KIND [--seed S] [--out DIR]
 
@@ -19,10 +20,13 @@ vortex and RBF models always draw on the CPU; the hash-grid path runs with
   return the port's draws, converted; the vortex runs also give each
   residual block at the init coefficients (train: from the JAX model's
   `_scaled_mse` calls) or after the solve (cg: `block_residuals`);
-* hash-grid advection: the JAX fields start from the port's init, and
-  every collocation draw of the JAX losses (`sample_random`,
-  `sample_boundary`) returns, through an ordered `io_callback`, the
-  port's draw for that iteration, in the port's order.
+* hash-grid advection and tlgnM (`paper_args("fluid2DtlgnM")`, with
+  `--host_rng`): the JAX fields start from the port's init, and every
+  collocation draw of the JAX losses (`sample_random`, `sample_boundary`;
+  the fluid's `sample_boundary2D_separate`) returns, through an ordered
+  `io_callback`, the port's draw for that iteration, in the port's order
+  (`run_on_port_draws`, which `tests/elasticity_reference_jax.py paired`
+  uses too).
 
 It prints one JSON object, {"kind", "seed", "port_cpu": {...}, "jax":
 {...}}, the quantities the chip check reads, measured as it measures them,
@@ -52,7 +56,7 @@ from insr_pde_tpu_torch.starterL import (build_config,  # noqa: E402
                                          parse_args)
 
 KINDS = ("vortex_cg", "vortex_train", "stream_train", "rbf_advection",
-         "hashgrid_advection", "hash")
+         "hashgrid_advection", "hash", "tlgnM")
 
 
 class _Recorder:
@@ -218,81 +222,199 @@ def _rel_l2s(exp_dir, cfg):
         for t in range(cs.HASH_ADV_STEPS + 1)]
 
 
-def run_hashgrid_advection(seed):
+def run_on_port_draws(args, port_ns, jax_ns, samplers, out_dir,
+                      adjust=None):
+    """The port's entry point on the CPU with `args` (into
+    `out_dir/port`), each draw of the samplers named in `samplers` (module
+    attributes of `port_ns`) recorded in the order the port makes it; then
+    the JAX package's `main.py` on the same flags (without `--host_rng`,
+    into `out_dir/jax`), its model started from the port's init fields
+    (and the port's `sample_vis`, where the model has one), and each call
+    of those samplers in `jax_ns` answered, through an ordered
+    `io_callback`, with the port's draw. `samplers` maps a name to (kind,
+    shape): functions of the call's arguments after the generator (or key)
+    that give the draw's kind and its shape. A draw asked out of order, and
+    a draw left over, raise. `adjust(jax_model)` may change the JAX model
+    before its run. The JAX Solver runs unpipelined (its pipelined result
+    is the same bits, but its speculative chunk after an early stop would
+    take draws the port never makes). Returns (port model, JAX model, the
+    port's iterations per fit, JAX's)."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import io_callback
     import main as jax_main
-    from insr_pde_tpu.config import parse_args as jparse
-    from insr_pde_tpu.models import advection as ja
-    from insr_pde_tpu_torch.__main__ import main as port_main
-    from insr_pde_tpu_torch.config import parse_args as tparse
-    from insr_pde_tpu_torch.convert import hashgrid_params_to_numpy
-    from insr_pde_tpu_torch.models import advection as tadv
-    out_dir = tempfile.mkdtemp(prefix="hashgrid_ref_")
-    args = list(cs.HASH_ADV_ARGS)
-    if seed is not None:
-        args += ["--seed", str(seed)]
-    jargs = [a for a in args if a != "--host_rng"]   # a port option
+    from insr_pde_tpu.models import base as jbase
+    from insr_pde_tpu_torch import __main__ as port_cli
+    from insr_pde_tpu_torch.convert import (hashgrid_params_to_numpy,
+                                            params_to_numpy)
+
+    # --host_rng is a port option; one JAX device, as the port runs one
+    # process (the test harness gives JAX 8 virtual CPU devices)
+    jargs = [a for a in args if a != "--host_rng"] + ["--n_devices", "1"]
     where = ["--proj_dir", out_dir, "--tag"]
+    draws, init = [], {}
 
-    # the port on the CPU, its draws recorded in the order it makes them
-    draws = []
+    def recording(name):
+        fn, kind = getattr(port_ns, name), samplers[name][0]
 
-    def recording(fn, kind):
-        def draw(*a, **k):
-            v = fn(*a, **k)
-            draws.append((kind, v.numpy().reshape(-1, 1)))
+        def draw(gen, *a, **k):
+            v = fn(gen, *a, **k)
+            draws.append((kind(*a, **k), v.detach().cpu().numpy().reshape(
+                samplers[name][1](*a, **k))))
             return v
         return draw
 
-    with _patched(tadv, sample_random=recording(tadv.sample_random, "x"),
-                  sample_boundary=recording(tadv.sample_boundary, "xb")):
-        port_main(args + ["--device", "cpu"] + where + ["port"])
-    tcfg = tparse(args + ["--device", "cpu"] + where + ["port"])
-    init = tadv.Advection1DModel(tcfg).fields     # the same init draws
-    fields = {k: jax.tree_util.tree_map(jnp.asarray,
-                                        hashgrid_params_to_numpy(v))
-              for k, v in init.items()}
+    build = port_cli.build_model
 
-    # the JAX package on the same init and draws
+    def capturing(cfg, group=None):
+        m = build(cfg, group)
+        init["fields"] = {k: hashgrid_params_to_numpy(v)
+                          if isinstance(v, dict) else params_to_numpy(v)
+                          for k, v in m.fields.items()}
+        vis = getattr(m, "sample_vis", None)
+        init["vis"] = None if vis is None else vis.cpu().numpy()
+        return m
+
+    with _patched(port_ns, **{n: recording(n) for n in samplers}), \
+            _patched(port_cli, build_model=capturing):
+        port = port_cli.main(args + ["--device", "cpu"] + where + ["port"])
+
     feed = iter(draws)
 
     def feeder(kind):
         def host(_key):
-            got, v = next(feed)
+            got, v = next(feed, (None, None))
             if got != kind:
                 raise RuntimeError(f"draw order: JAX asks for {kind}, the "
                                    f"port drew {got}")
             return v
         return host
 
-    def sample_random(key, n, sdim):
-        return io_callback(feeder("x"), jax.ShapeDtypeStruct(
-            (n, sdim), jnp.float32), key, ordered=True)
+    def feeding(name):
+        kind, shape = samplers[name]
 
-    def sample_boundary(key, n, sdim):
-        return io_callback(feeder("xb"), jax.ShapeDtypeStruct(
-            (2 * (n // 2), sdim), jnp.float32), key, ordered=True)
+        def draw(key, *a, **k):
+            return io_callback(feeder(kind(*a, **k)), jax.ShapeDtypeStruct(
+                shape(*a, **k), jnp.float32), key, ordered=True)
+        return draw
 
-    build = jax_main.build_model
+    jax_iters, held = [], []
+
+    class Solver(jbase.Solver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **{**k, "pipeline": False})
+
+        def fit(self, *a, **k):
+            res = super().fit(*a, **k)
+            jax_iters.append(int(res.n_iters))
+            return res
+
+    jbuild = jax_main.build_model
 
     def paired_model(cfg, mesh=None):
-        m = build(cfg, mesh)
-        m.fields = dict(fields)
+        m = jbuild(cfg, mesh)
+        if set(m.fields) != set(init["fields"]):
+            raise RuntimeError(f"fields: JAX {sorted(m.fields)}, the port "
+                               f"{sorted(init['fields'])}")
+        m.fields = {k: jax.tree_util.tree_map(jnp.asarray, v)
+                    for k, v in init["fields"].items()}
+        if init["vis"] is not None:
+            m.sample_vis = jnp.asarray(init["vis"])
+        if adjust is not None:
+            adjust(m)
+        held.append(m)
         return m
 
-    with _patched(ja, sample_random=sample_random,
-                  sample_boundary=sample_boundary), \
+    with _patched(jax_ns, **{n: feeding(n) for n in samplers}), \
+            _patched(jbase, Solver=Solver), \
             _patched(jax_main, build_model=paired_model):
         jax_main.main(jargs + where + ["jax"])
     if next(feed, None) is not None:
         raise RuntimeError("the JAX run took fewer draws than the port made")
-    jcfg = jparse(jargs + where + ["jax"], phase="train")
-    return tcfg.seed, {
+    port_iters = [int(r["n_iters"]) for r in port.phase_timings]
+    return port, held[0], port_iters, jax_iters
+
+
+def _random_kind(n, sdim=1):
+    return f"random{sdim}"
+
+
+def _random_shape(n, sdim=1):
+    return (n, sdim)
+
+
+# the fluid model's samplers: interior points and the boundary strips by
+# side (insr_pde_tpu_torch/models/fluid.py, insr_pde_tpu/models/fluid.py)
+FLUID_SAMPLERS = {
+    "sample_random": (_random_kind, _random_shape),
+    "sample_boundary2D_separate": (
+        lambda n, side, epsilon=1e-4: side,
+        lambda n, side, epsilon=1e-4: (2 * (n // 2), 2)),
+}
+
+
+def tlgnM_pair(args, out_dir):
+    """The fluid scene `args` on the port's draws: (the port's iterations
+    per fit, JAX's, per-t fluid statistics of each run, the largest |port
+    - JAX| of the final fields' parameters)."""
+    from insr_pde_tpu.models import fluid as jfluid
+    from insr_pde_tpu_torch.elasticity_stats import run_stats
+    from insr_pde_tpu_torch.models import fluid as tfluid
+    port, jm, port_iters, jax_iters = run_on_port_draws(
+        args, tfluid, jfluid, FLUID_SAMPLERS, out_dir)
+    return {"port_cpu": {"iters": port_iters,
+                         "stats": run_stats("fluid", os.path.join(out_dir,
+                                                                  "port"))},
+            "jax": {"iters": jax_iters,
+                    "stats": run_stats("fluid", os.path.join(out_dir,
+                                                             "jax"))},
+            "param_max_abs_diff": param_max_abs_diff(port.fields, jm.fields)}
+
+
+def param_max_abs_diff(port_fields, jax_fields):
+    """The largest |port - JAX| over every weight and bias of every
+    field."""
+    from insr_pde_tpu_torch.convert import params_to_numpy
+    return max(float(np.abs(np.asarray(j) - t).max())
+               for name, p in port_fields.items()
+               for tl, jl in zip(params_to_numpy(p), jax_fields[name])
+               for t, j in zip(tl, jl))
+
+
+def run_tlgnM(seed):
+    """`paper_matrix`'s multi-scale Taylor-Green scene (chip_smoke
+    `paper_args("fluid2DtlgnM")`) on the port's draws."""
+    args = cs.paper_args("fluid2DtlgnM")
+    if seed is not None:
+        args += ["--seed", str(seed)]
+    rec = tlgnM_pair(args, tempfile.mkdtemp(prefix="tlgnM_ref_"))
+    return (seed if seed is not None else 0), rec
+
+
+# the advection model's samplers (insr_pde_tpu_torch/models/advection.py,
+# insr_pde_tpu/models/advection.py); the port draws the boundary points
+# as a batch of one
+ADVECTION_SAMPLERS = {
+    "sample_random": (_random_kind, _random_shape),
+    "sample_boundary": (lambda n, sdim, epsilon=1e-4, batch=0: "boundary",
+                        lambda n, sdim, epsilon=1e-4, batch=0:
+                        (2 * (n // 2), sdim)),
+}
+
+
+def run_hashgrid_advection(seed):
+    from insr_pde_tpu.models import advection as jadv
+    from insr_pde_tpu_torch.models import advection as tadv
+    out_dir = tempfile.mkdtemp(prefix="hashgrid_ref_")
+    args = list(cs.HASH_ADV_ARGS)
+    if seed is not None:
+        args += ["--seed", str(seed)]
+    port, jm, _, _ = run_on_port_draws(args, tadv, jadv, ADVECTION_SAMPLERS,
+                                       out_dir)
+    return port.cfg.seed, {
         "port_cpu": {"rel_l2": _rel_l2s(os.path.join(out_dir, "port"),
-                                        tcfg)},
-        "jax": {"rel_l2": _rel_l2s(os.path.join(out_dir, "jax"), jcfg)}}
+                                        port.cfg)},
+        "jax": {"rel_l2": _rel_l2s(os.path.join(out_dir, "jax"), jm.cfg)}}
 
 
 def run_hash(seed):
