@@ -169,7 +169,12 @@ result line):
      |A x - b|, inlet error and per-block rms and its gap to the f64
      answer; LSQR must converge (istop 1 or 2) and no f32 residual may be
      below its;
- 29. one JSON line of kernel records, the nvidia-smi line, and the last
+ 29. bench: `python -m insr_pde_tpu_torch.bench` in processes of its own,
+     fluid at `--iters 500 --reps 2` and the other three workloads
+     (advect1d, vortex_channel, elasticity_lucy) at their defaults; each
+     must exit 0, and its last line, printed here, must carry every key
+     with every `_correct` true and this card's name;
+ 30. one JSON line of kernel records, the nvidia-smi line, and the last
      line {"ok": true, "device": {...}}. siren_forward's record is the lucy
      shape, its launches those of the elasticity 3D path.
 
@@ -190,6 +195,14 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
+# The elasticity scenes' flags and the JAX package's per-t statistics, the
+# plane's bar, the Taylor-Green bar and the analytic advection yardstick,
+# shared with the bench (`python -m insr_pde_tpu_torch.bench`) so that the
+# two hold the port to one copy of each.
+from insr_pde_tpu_torch.yardsticks import (  # noqa: E402
+    ELA_2D_ARGS, ELA_2D_JAX, ELA_3D_ARGS, ELA_3D_JAX, ELA_ITERS, ELA_MESH_N,
+    ELA_PLANE, ELA_PLANE_SLACK, ELA_STEPS, TG_REL_L2_BAR, advect_rel_l2)
+
 # H100 SXM data-sheet peaks (dense, no sparsity): FP32 outside the tensor
 # cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -197,12 +210,6 @@ PEAK_BYTES_PER_S = 3.35e12
 
 T_STEPS = 2
 MAX_ITERS = 500
-# t=0 velocity after MAX_ITERS Adam iterations against analytic Taylor-Green
-# on the -vr grid: the JAX package reaches 3.6e-2 at this budget (CPU run of
-# the same config), the port 3.8e-2 on the CPU at -sr 64. 0.1 leaves room
-# for the other point draws and still fails a fit that did not converge.
-# The merged2 path is held to the same bar at t = 0, 1 and 2.
-TG_REL_L2_BAR = 0.1
 # The split pressure phase's device events per Adam iteration through the
 # eager forward-Laplacian chain and autograd, before the fused kernel pair
 # took its place (PERF.md section 5)
@@ -394,62 +401,6 @@ HASH_CORNERS = {
         [38258, 16426, 37492], [-16066, 1036, 19259]],
 }
 
-# The elasticity paths: scripts/elasticity3Dlucy.sh (SIREN 3x128, -sr 20 =
-# 8,000 volume points + every vertex per Adam iteration, -vr 10000) on the
-# lucy-scale stand-in, and scripts/elasticity2Dcollide.sh (SIREN 3x68, -sr
-# 100 = 10,000 random + 10,000 grid points; the init fit at the reference's
-# 500^2 + 500^2), each cut to T=ELA_STEPS and ELA_ITERS Adam iterations per
-# fit (the scripts run T=20 at up to 20,000). Widths, point counts, lr, dt
-# and energies as published. At T=4 the 3D drop reaches the plane at z = -2,
-# so its collision term is at work in the last fit. The JAX reference runs
-# (tests/elasticity_reference_jax.py) take these lists as they are.
-ELA_STEPS = 4
-ELA_ITERS = 300
-ELA_MESH_N = 32          # statue_tet_mesh(32): 35,937 vertices, 163,840 tets
-ELA_PLANE = -2.0
-ELA_3D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
-               "128", "-sr", "20", "-vr", "10000", "-T", str(ELA_STEPS),
-               "--dt", "0.1", "--max_n_iters", str(ELA_ITERS), "--lr",
-               "1e-4", "--dim", "3", "--energy", "arap", "kinematics",
-               "collision", "external", "volume", "--ratio_volume", "1e3",
-               "--ratio_arap", "1e3", "--ratio_collide", "1e6",
-               "--ratio_kinematics", "1e0", "-f_ext_x", "0", "-f_ext_y", "0",
-               "-f_ext_z=-2e1", "-T_ext", "10", "--plane_height",
-               str(ELA_PLANE), "--use_mesh", "1", "--early_stop",
-               "--no_backup", "--host_rng"]
-ELA_2D_ARGS = ["elasticity", "--num_hidden_layers", "3", "--hidden_features",
-               "68", "-sr", "100", "-vr", "100", "-T", str(ELA_STEPS),
-               "--dt", "0.1", "--max_n_iters", str(ELA_ITERS), "--lr",
-               "1e-5", "--dim", "2", "--energy", "arap", "kinematics",
-               "collision_sphere", "external", "volume", "--ratio_volume",
-               "1e3", "--ratio_arap", "2e1", "--ratio_collide", "1e4",
-               "--ratio_kinematics", "1e1", "-f_ext_x", "0", "-f_ext_y=-2e2",
-               "-T_ext", "2", "--early_stop", "--no_backup", "--host_rng"]
-# The JAX package at the same cut on a CPU, seeds 0-5
-# (`python tests/elasticity_reference_jax.py 3d|2d`, PERF.md section 6):
-# per quantity and t = 0..ELA_STEPS, the mean over the seeds and their
-# spread (max - min). The port's value at each t must lie within 2x that
-# t's spread of that t's mean. The 3D fit at t=4, the first in contact
-# with the plane, spreads ~25x wider over the seeds than those before it.
-# The 2D penetration at t=0 also takes a seventh JAX run, the paired one
-# on the port's draws (ELA_2D_PAIRED: 0.004204989): the six seeds all read
-# exactly 0 there, a bar of zero width that JAX itself misses on other
-# draws.
-ELA_3D_JAX = {
-    "z_min": ((-1.161975, -1.255353, -1.454716, -1.75446, -1.968614),
-              (0.003604, 0.003179, 0.003423, 0.003427, 0.08608)),
-    "z_mean": ((-0.08441902, -0.1841616, -0.3839114, -0.6836644,
-                -0.8970536),
-               (0.003198, 0.003364, 0.003533, 0.003703, 0.08871)),
-}
-ELA_2D_JAX = {
-    "centroid_y": ((-2.931183e-05, -0.08543724, -0.2396635, -0.3653672,
-                    -0.4647207),
-                   (8.682e-05, 0.006354, 0.01823, 0.02926, 0.03935)),
-    "penetration": ((0.0006007127, 0.009386999, 0.01569503, 0.01011736,
-                     0.007997869),
-                    (0.004204989, 0.01137, 0.004588, 0.003203, 0.001631)),
-}
 # the width-128 bar of phase_kernels, also held by the elasticity paths'
 # last output against the plain forward of the final field
 ELA_SIREN_ATOL = 5e-5
@@ -567,6 +518,12 @@ PAIRED_BARS = {
 PAPER_SMOKE_TIMEOUT_S = 400
 # phase vortex_truth: the JAX tool's LSQR budget
 VORTEX_TRUTH_ITERS = 40000
+# phase bench: the bench's workloads in processes of their own, the fluid
+# one cut in depth (500 Adam iterations a fit, 2 reps: ~5,000 iterations
+# against 57,000 at the defaults), the others at their defaults
+BENCH_RUNS = ((("fluid",), ["--iters", "500", "--reps", "2"]),
+              (("advect1d", "vortex_channel", "elasticity_lucy"), []))
+BENCH_TIMEOUT_S = 600
 
 
 def paper_args(name, mesh_path=None):
@@ -584,16 +541,6 @@ def paper_args(name, mesh_path=None):
     if mesh_path is not None:
         args[args.index("--mesh_path") + 1] = mesh_path
     return args + ["--no_backup", "--host_rng"]
-
-
-def advect_rel_l2(u, vr, length, vel, dt, t):
-    """Rel L2 of an advection field `u` on the -vr grid against the
-    analytic bump gaussian_like(x - vel dt t, mu=-1.5, sigma=0.1)."""
-    import numpy as np
-    from insr_pde_tpu_torch.ops.sampling import sample_uniform
-    x = (sample_uniform(vr, 1) * (length / 2.0)).numpy()[:, 0]
-    exact = np.exp(-0.5 * (x - vel * dt * t + 1.5) ** 2 / 0.1 ** 2)
-    return float(np.linalg.norm(u - exact) / np.linalg.norm(exact))
 
 
 def rbf_adv_grid():
@@ -1845,13 +1792,12 @@ def phase_elasticity_3d():
                                f"fall at t={t}: {stats['z_mean']}")
     print(f"[elasticity3D] {len(V)} vertices, {len(T)} tets; centroid z per "
           f"t {[round(z, 6) for z in stats['z_mean']]} (falls at every t)")
-    # The drop alone (steps of 0.1, 0.2, 0.3, 0.4) takes z_min to about
-    # -2.15 at t=4; the plane holds it above -2.05 (the JAX package's six
-    # seeds: -1.998 to -1.912).
+    # the plane holds the drop (ELA_PLANE_SLACK)
     z_end = stats["z_min"][-1]
-    if not z_end >= ELA_PLANE - 0.05:
+    if not z_end >= ELA_PLANE - ELA_PLANE_SLACK:
         raise RuntimeError(f"[elasticity3D] z_min {z_end:.6f} at t="
-                           f"{ELA_STEPS} is more than 0.05 below the plane z "
+                           f"{ELA_STEPS} is more than {ELA_PLANE_SLACK} below "
+                           f"the plane z "
                            f"= {ELA_PLANE}: the collision term did not hold")
     print(f"[elasticity3D] t={ELA_STEPS} z_min {z_end:.6f}: the plane z = "
           f"{ELA_PLANE} holds the drop")
@@ -2732,6 +2678,41 @@ def phase_vortex_truth():
     return rec
 
 
+def phase_bench(device_name):
+    """`python -m insr_pde_tpu_torch.bench` in processes of its own: fluid
+    cut to BENCH_FLUID_ARGS (the Taylor-Green bar holds at 500 iterations
+    a fit), the other three workloads at their defaults. Each must exit 0
+    with a last line that carries every key (`bench.required_keys`), every
+    `_correct` true and this card's name; the line is printed."""
+    from insr_pde_tpu_torch.bench import required_keys
+    for workloads, extra in BENCH_RUNS:
+        tic = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "insr_pde_tpu_torch.bench", "--workload",
+             ",".join(workloads)] + extra, cwd=REPO, capture_output=True,
+            text=True, timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - tic
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            if line.startswith("[bench] FAILED"):
+                print(line, flush=True)
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"[bench] {','.join(workloads)}: exit "
+                               f"{proc.returncode}; stdout "
+                               f"{proc.stdout[-3000:]}; stderr "
+                               f"{proc.stderr[-3000:]}")
+        rec = json.loads(lines[-1])
+        print(f"[bench] {' '.join(extra)} {lines[-1]}", flush=True)
+        missing = [k for k in required_keys(workloads) if k not in rec]
+        wrong = [w for w in workloads if rec[f"{w}_correct"] is not True]
+        if missing or wrong or rec["device"]["name"] != device_name:
+            raise RuntimeError(f"[bench] {','.join(workloads)}: missing keys "
+                               f"{missing}, not correct {wrong}, device "
+                               f"{rec['device']} (this card: {device_name})")
+        print(f"[bench] {','.join(workloads)}: every key, every check "
+              f"passed on {device_name} in {wall:.1f}s", flush=True)
+
+
 def _timed(name, fn, *args):
     tic = time.perf_counter()
     out = fn(*args)
@@ -2781,6 +2762,7 @@ def main() -> int:
     _timed("sharded on cards", phase_sharded_cards, split_model, flag_timings)
     _timed("paper matrix", phase_paper_matrix)
     _timed("vortex truth", phase_vortex_truth)
+    _timed("bench", phase_bench, name)
     # each kernel's launches from the run of its own path: the elasticity
     # 3D path for siren_forward (its record is the lucy shape), the fluid
     # split main path for the vgl pair, the advection path for advect_fit,

@@ -329,7 +329,7 @@ def test_port_imports_no_jax():
         "          'models.elasticity', 'utils.io', 'recap',\n"
         "          'models.encodings', 'models.rbf_advection',\n"
         "          'parallel', 'parallel.mesh', 'run_experiments',\n"
-        "          'vortex_truth', 'vortex_sweep'):\n"
+        "          'vortex_truth', 'vortex_sweep', 'bench', 'yardsticks'):\n"
         "    assert 'insr_pde_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
