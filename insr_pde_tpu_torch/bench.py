@@ -269,6 +269,8 @@ def _counters():
 
 
 def reset_launches() -> None:
+    """Every kernel's launch count and every route count (`read_routes`)
+    to 0."""
     block_ell, advect_fit, siren_forward, siren_vgl = _counters()
     siren_forward.launches = 0
     siren_vgl.fwd_launches = 0
@@ -276,6 +278,9 @@ def reset_launches() -> None:
     advect_fit.launches = 0
     block_ell.mv_launches = 0
     block_ell.rmv_launches = 0
+    siren_vgl.chain_routes = 0
+    siren_forward.apply_routes = 0
+    advect_fit.solver_routes = 0
 
 
 def read_launches() -> Dict[str, int]:
@@ -288,6 +293,25 @@ def read_launches() -> Dict[str, int]:
             "advect_fit": advect_fit.launches,
             "block_ell_mv": block_ell.mv_launches,
             "block_ell_rmv": block_ell.rmv_launches}
+
+
+def read_routes() -> Dict[str, int]:
+    """The calls since `reset_launches` whose shapes a kernel does not take
+    and which went to the JAX package's route in plain PyTorch instead:
+    the forward-Laplacian chain, `MLP.apply`, the generic advect Solver."""
+    _, advect_fit, siren_forward, siren_vgl = _counters()
+    return {"chain_routes": siren_vgl.chain_routes,
+            "apply_routes": siren_forward.apply_routes,
+            "solver_routes": advect_fit.solver_routes}
+
+
+def check_no_routes(failures: List[str], name: str) -> None:
+    """A failure unless every call of the run since `reset_launches` went
+    to its kernel's route (no shape went past a kernel)."""
+    routes = read_routes()
+    _check(failures, not any(routes.values()),
+           f"{name}: shapes its kernels do not take went to plain PyTorch "
+           f"{routes}")
 
 
 def traced_busy_ms(fn: Callable[[], object], device: torch.device,
@@ -530,6 +554,7 @@ def bench_fluid(config: dict, reps: int, device: torch.device,
         times.append(_timed(lambda: results.append(model.step()), device))
         if launches is None:
             launches = read_launches()
+        check_no_routes(failures, f"fluid rep {rep}")
         check_iters(results[0])
         for rec in model.phase_timings[-3:]:
             phase_ms[rec["tag"]].append(rec["sec"] / rec["n_iters"] * 1e3)
@@ -626,6 +651,7 @@ def bench_advect1d(config: dict, reps: int, device: torch.device,
                      / ADV_STEPS_PER_REP)
         if launches is None:
             launches = read_launches()
+        check_no_routes(failures, f"advect1d rep {rep}")
         check_fields(snaps)
         _progress(f"advect1d rep {rep}: {times[-1]:.4f} s a step")
     median = summarize(times)["median"]
@@ -690,6 +716,7 @@ def bench_vortex_channel(config: dict, reps: int, device: torch.device,
         times.append(_timed(model.matrix_solver, device))
         if launches is None:
             launches = read_launches()
+        check_no_routes(failures, f"vortex_channel rep {rep}")
         breakdown = dict(model.picard_timings[-1])
         check_field()
         _progress(f"vortex_channel rep {rep}: {times[-1]:.3f} s")
@@ -784,6 +811,7 @@ def bench_elasticity_lucy(config: dict, reps: int, device: torch.device,
         times.append(_timed(step, device))
         if launches is None:
             launches = read_launches()
+        check_no_routes(failures, f"elasticity_lucy rep {rep}")
         check_field()
         _progress(f"elasticity_lucy rep {rep} (t={model.timestep}): "
                   f"{times[-1]:.3f} s")

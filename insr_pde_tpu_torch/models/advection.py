@@ -15,6 +15,11 @@ version; it computes the same loss as `_advect_loss`. Any other network
 (`--nonlinearity relu|elu`) fits `_advect_loss` through the generic
 `Solver`, as the JAX model fits every network.
 
+A sine SIREN whose shape the kernel does not take (`advect_fit.takes`:
+wider than MAX_HIDDEN, or buffers beyond its shared memory) fits the advect
+phase through the generic `Solver` too, as the JAX package does at every
+width; each such fit counts in `advect_fit.solver_routes`.
+
 On more than one rank (`group`) the advect phase runs the generic `Solver`
 for every network, the sine SIREN included: the fused fit is one launch per
 chunk with no reduction across ranks inside it, and the JAX package's
@@ -96,15 +101,21 @@ class Advection1DModel(BaseModel):
         self.n_samples = max(1, self.sample_resolution // self.n_ranks)
         self.n_boundary = max(
             max(self.sample_resolution // 100, 10) // self.n_ranks, 2)
-        # the advect phase's solver: the fused fit for the sine SIREN on one
-        # rank, else None (`_run_phase` builds the generic Solver on
-        # `_advect_loss`)
+        # the advect phase's solver: the fused fit for a one-rank sine SIREN
+        # whose shape the kernel takes, else None (`_run_phase` builds the
+        # generic Solver on `_advect_loss`)
         self.advect_solver = None
+        widths = self.net._widths if self.net._is_siren else None
+        n_rows = self.n_samples + 2 * (self.n_boundary // 2)
         if self.net._is_siren and group is None:
-            widths = [1] + [w.shape[1] for w, _ in self.fields["field"]]
-            self.advect_solver = FusedAdvectSolver(
-                self._advect_tables, widths, dt=self.dt, vel=self.vel,
-                **self._solver_options())
+            if af.takes(widths, n_rows):
+                self.advect_solver = FusedAdvectSolver(
+                    self._advect_tables, widths, dt=self.dt, vel=self.vel,
+                    **self._solver_options())
+            else:
+                print(f"note: advection at widths {widths} fits the advect "
+                      "phase with the generic Solver (the fused advect_fit "
+                      "kernel does not take them)")
         elif self.net._is_siren and self.is_main:
             print(f"note: advection on {group.size} ranks fits the advect "
                   "phase with the generic Solver (the fused advect_fit "
@@ -176,6 +187,9 @@ class Advection1DModel(BaseModel):
         """du/dt = -vel du/dx: one advect fit against the previous field."""
         self.begin_timestep()
         self.fields["field_prev"] = self.fields["field"]
+        if (self.advect_solver is None and self.net._is_siren
+                and self.n_ranks == 1):
+            af.advect_fit.solver_routes += 1
         res = self._run_phase("advect", self._advect_loss,
                               self._advect_points, self.fields["field"],
                               aux={"prev": self.fields["field_prev"]},

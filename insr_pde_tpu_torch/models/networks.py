@@ -19,11 +19,27 @@ from typing import Any, List, Tuple
 import torch
 
 from ..ops.siren_forward import siren_forward
+from ..ops.siren_forward import takes as siren_forward_takes
 from ..ops.siren_vgl import siren_vgl
+from ..ops.siren_vgl import takes as siren_vgl_takes
 
 Params = List[Tuple[torch.Tensor, torch.Tensor]]  # [(W (in,out), b (out,)), ...]
 
 OMEGA_0 = 30.0  # SIREN frequency factor
+
+
+# (kernel, widths) of every card run routed away from a kernel, noted once
+_ROUTED = set()
+
+
+def _note_route(kernel: str, widths: List[int], route: str,
+                coords: torch.Tensor) -> None:
+    """Print once per kernel and widths that a card run takes `route`, so
+    that no such run goes past its kernel silently."""
+    if coords.is_cuda and (kernel, tuple(widths)) not in _ROUTED:
+        _ROUTED.add((kernel, tuple(widths)))
+        print(f"note: {kernel} does not take widths {widths}; {route} runs "
+              "on the card instead", flush=True)
 
 
 def _uniform(generator, shape, lo, hi):
@@ -116,24 +132,45 @@ class MLP:
 
     def value_grad_laplacian(self, params: Params, coords: torch.Tensor):
         """(u (N, m), J (N, d, m), L (N, m)) of (N, d) coords. The sine MLP
-        goes through `ops/siren_vgl.siren_vgl`: the fused forward and
-        backward kernels on a CUDA tensor, the plain chain and its
-        hand-derived reverse sweep on a CPU tensor. Not for `torch.func`
-        transforms; other networks take vmapped jacfwd/hessian."""
+        goes through `ops/siren_vgl.siren_vgl` where its kernels take the
+        shape (`siren_vgl.takes`): the fused forward and backward kernels on
+        a CUDA tensor, the plain chain and its hand-derived reverse sweep on
+        a CPU tensor. Wider or deeper sine MLPs, and inputs of more than 3
+        dimensions, take the forward-Laplacian chain under autograd (the
+        JAX package's route at every width), counted in
+        `siren_vgl.chain_routes`. Not for `torch.func` transforms; other
+        networks take vmapped jacfwd/hessian."""
         if self._is_siren:
-            return siren_vgl(params, coords)
+            if siren_vgl_takes(self._widths, coords.shape[-1]):
+                return siren_vgl(params, coords)
+            siren_vgl.chain_routes += 1
+            _note_route("siren_vgl", self._widths,
+                        "the forward-Laplacian chain under autograd", coords)
+            from ..ops.forward_laplacian import value_grad_laplacian as _vgl
+            return _vgl(params, coords)
         return _value_grad_laplacian_autodiff(
             self.point_fn(params), lambda x: self.apply(params, x), coords)
 
     def apply_fused(self, params: Params, coords: torch.Tensor) -> torch.Tensor:
         """Forward through the fused SIREN kernel (ops/siren_forward.py) on a
-        CUDA tensor, its plain version on a CPU tensor. Sine SIRENs only;
-        other networks take `apply`."""
+        CUDA tensor, its plain version on a CPU tensor, where the kernel
+        takes the widths (`siren_forward.takes`); else `apply`, counted in
+        `siren_forward.apply_routes`, as the JAX package's `apply_fused`
+        runs `apply` off the TPU. Sine SIRENs only; other networks take
+        `apply`."""
         if not self._is_siren:
+            return self.apply(params, coords)
+        if not siren_forward_takes(self._widths):
+            siren_forward.apply_routes += 1
+            _note_route("siren_forward", self._widths, "MLP.apply", coords)
             return self.apply(params, coords)
         flat = coords.reshape(-1, coords.shape[-1]).contiguous()
         out = siren_forward(params, flat)
         return out.reshape(*coords.shape[:-1], self.out_features)
+
+    @property
+    def _widths(self) -> List[int]:
+        return [self.in_features] + [b for _, b in self.layer_dims]
 
 
 def _value_grad_autodiff(point_fn, batch_fn, coords: torch.Tensor):

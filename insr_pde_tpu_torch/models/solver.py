@@ -107,6 +107,22 @@ def adam_update(grad: torch.Tensor, state: AdamState, lr: float,
     return updates, AdamState(mu, nu, count)
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable:
+    """`optax.cosine_decay_schedule`: count -> init_value * ((1 - alpha) *
+    (1 + cos(pi * min(count, decay_steps) / decay_steps)) / 2 + alpha), of
+    the Adam step count before the update (an int tensor), as a float32
+    tensor on the count's device."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        t = torch.clamp(count, max=decay_steps).to(torch.float32)
+        cosine = 0.5 * (1.0 + torch.cos(np.pi * t / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+    return schedule
+
+
 class SolveState(NamedTuple):
     params: torch.Tensor    # flat f32 vector
     opt: AdamState

@@ -42,7 +42,7 @@ import os
 import time
 import warnings
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -268,8 +268,11 @@ class VortexModel:
         # computed once, reused by every assembly)
         self.pb = self._point_basis(self.params, self.pts.x, self.pts.t)
         self.tb = MetricsWriter(cfg.log_dir) if log and self.is_main else None
-        # train(): optax.adam(train_lr) state on u, kept across calls
+        # train(): optax.adam(train_lr) state on u, kept across calls; an
+        # optional schedule of the Adam step count replaces train_lr
+        # (`solver.cosine_decay_schedule`, optax.adam(schedule))
         self.opt_state = adam_init(self.params.u)
+        self.lr_schedule: Optional[Callable] = None
         self._step = 0
 
     def _ix(self, ids: np.ndarray) -> torch.Tensor:
@@ -331,8 +334,9 @@ class VortexModel:
                 _scaled_mse(lhs5, rhs5), _scaled_mse(lhs6, 0.0)]
 
     def train(self, n_iters: int = 1) -> float:
-        """n_iters Adam iterations (optax.adam(cfg.train_lr), its state kept
-        across calls) on the coefficient tensor against `residual_loss`.
+        """n_iters Adam iterations (optax.adam(cfg.train_lr), or of
+        `lr_schedule` where one is set; its state kept across calls) on the
+        coefficient tensor against `residual_loss`.
         Returns the loss of the last iteration (taken before its update; inf
         for none). The losses stay on the device and are logged after the
         loop under the model's running step numbers."""
@@ -342,7 +346,9 @@ class VortexModel:
             u = u.requires_grad_(True)
             loss = self.residual_loss(u)
             (g,) = torch.autograd.grad(loss, u)
-            updates, state = adam_update(g, state, self.cfg.train_lr)
+            lr = (self.cfg.train_lr if self.lr_schedule is None
+                  else self.lr_schedule(state.count))
+            updates, state = adam_update(g, state, lr)
             u = u.detach() + updates
             losses.append(loss.detach())
         self.params = self.params._replace(u=u.detach())

@@ -27,7 +27,10 @@ gradient holds a NaN (the JAX Solver's `any(isnan(grad))`).
 On a CUDA tensor `advect_fit` launches `csrc/advect_fit.cu` (built at first
 use); on a CPU tensor it runs `advect_fit_reference`, the plain eager loop
 with autograd. There is no fallback: a failed build or launch raises.
-`advect_fit.launches` counts kernel launches (not CPU calls).
+`advect_fit.launches` counts kernel launches (not CPU calls). `takes(widths,
+n_rows)` says whether the kernel takes a network's shape; the advection
+model fits the others through the generic `Solver` and counts each such
+fit in `advect_fit.solver_routes`.
 """
 
 from __future__ import annotations
@@ -116,6 +119,17 @@ def plan_rows(widths: Sequence[int], n_rows: int, sms: int) -> int:
     while rows > ROW_STEP and smem_bytes(widths, rows) > SMEM_LIMIT:
         rows -= ROW_STEP
     return rows
+
+
+def takes(widths: Sequence[int], n_rows: int) -> bool:
+    """Whether the kernel takes a sine SIREN of layer widths [1, ..., 1]
+    at n_rows points an iteration: 2..MAX_LAYERS layers, every width up to
+    MAX_HIDDEN, and a row plan whose buffers fit (`plan_rows` > 0; as
+    `csrc/advect_fit.cu` make_dims)."""
+    widths = list(widths)
+    return (2 <= len(widths) - 1 <= MAX_LAYERS and widths[0] == 1
+            and widths[-1] == 1 and all(1 <= w <= MAX_HIDDEN for w in widths)
+            and n_rows >= 2 and plan_rows(widths, n_rows, 1) > 0)
 
 
 def _check(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
@@ -328,3 +342,4 @@ def advect_fit(state: AdvectFitState, prev: torch.Tensor, x: torch.Tensor,
 
 
 advect_fit.launches = 0
+advect_fit.solver_routes = 0

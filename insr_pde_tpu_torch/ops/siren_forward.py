@@ -12,7 +12,9 @@ through the plain version, as the JAX custom VJP recomputes through
 `_forward_reference`; there is no backward kernel.
 
 `siren_forward.launches` counts kernel launches (not CPU calls), so that a
-run can show that its path went through the kernel.
+run can show that its path went through the kernel. `takes(widths)` says
+whether the kernel takes a network's widths; `MLP.apply_fused` sends the
+others to the plain forward and counts them in `siren_forward.apply_routes`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,17 @@ def siren_forward_reference(params: Params,
         if i < len(params) - 1:
             h = torch.sin(OMEGA_0 * h)
     return h
+
+
+def takes(widths: Sequence[int]) -> bool:
+    """Whether the fused forward kernels take a sine MLP of layer widths
+    [in, out_0, ..., out_last]: 1..MAX_LAYERS layers, every width
+    1..MAX_WIDTH (`csrc/sine_mlp_tile.cuh` plan_layers). Within those the
+    plan always fits the shared memory: at its fewest rows, the two-buffer
+    weight ring of a 128-wide layer and the activations take less than
+    half of it."""
+    return (1 <= len(widths) - 1 <= MAX_LAYERS
+            and all(1 <= w <= MAX_WIDTH for w in widths))
 
 
 def check_inputs(params: Params, coords: torch.Tensor,
@@ -76,7 +89,7 @@ def check_inputs(params: Params, coords: torch.Tensor,
                 f"{tuple(b.shape)}; expected W ({width}, out), b (out,)")
         width = w.shape[1]
     widths = [coords.shape[1]] + [w.shape[1] for w, _ in params]
-    if max(widths) > MAX_WIDTH:
+    if not takes(widths):
         raise ValueError(f"{name}: widths up to {MAX_WIDTH} are "
                          f"supported, got {widths}")
 
@@ -170,3 +183,4 @@ def siren_forward(params: Params, coords: torch.Tensor) -> torch.Tensor:
 
 
 siren_forward.launches = 0
+siren_forward.apply_routes = 0

@@ -18,6 +18,10 @@ transforms (`MLP.apply` and `point_fn` stay kernel-free for those).
 
 `siren_vgl.fwd_launches` and `siren_vgl.bwd_launches` count kernel launches
 (not CPU calls), so that a run can show that its path went through them.
+`takes(widths, d)` says whether the kernels take a network's shape;
+`MLP.value_grad_laplacian` sends the others to the forward-Laplacian chain
+under autograd (the JAX package's route at every width) and counts them in
+`siren_vgl.chain_routes`.
 """
 
 from __future__ import annotations
@@ -30,9 +34,12 @@ from torch.autograd.function import once_differentiable
 
 from . import cuda_build
 from .forward_laplacian import OMEGA_0, value_grad_laplacian
+from . import siren_forward
 from .siren_forward import check_inputs, pack_params, pairs
 
 MAX_DIM = 3          # csrc/siren_vgl.cu MAX_D: the kernels carry d + 2 channels
+CG = 8               # csrc/sine_mlp_tile.cuh CG: columns are padded to it
+SMEM_LIMIT = 232448  # csrc/sine_mlp_tile.cuh SMEM_LIMIT, bytes per block
 
 Params = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -93,8 +100,42 @@ def siren_vgl_backward_reference(params: Params, coords: torch.Tensor,
     return grads, gh
 
 
+def _pad(n: int) -> int:
+    return -(-n // CG) * CG
+
+
+def backward_smem_bytes(widths: Sequence[int], rows: int = 1) -> int:
+    """Dynamic shared memory of a backward block of `rows` rows (as
+    `csrc/siren_vgl.cu` smem_bytes): z, Jz, Lz of every hidden layer, two
+    activation buffers and one staged layer, d + 2 channels, row stride
+    rows + 1."""
+    d, n_layers = widths[0], len(widths) - 1
+    c, rs = d + 2, rows + 1
+    act = max(_pad(w) for w in widths)
+    saved = sum(c * _pad(widths[l + 1]) * rs for l in range(n_layers - 1))
+    staged = max(max(fi * _pad(fo) + _pad(fo), fo * _pad(fi))
+                 for fi, fo in zip(widths[:-1], widths[1:]))
+    return 4 * (saved + 2 * c * act * rs + staged)
+
+
+def takes(widths: Sequence[int], d: int) -> bool:
+    """Whether the kernel pair takes a sine MLP of layer widths [d, out_0,
+    ..., out_last] at d-dimensional coords: d <= MAX_DIM, the forward's
+    limits (`siren_forward.takes`), and the backward's buffers at one row a
+    block within the shared memory (`csrc/siren_vgl.cu` plan_rows)."""
+    widths = list(widths)
+    return (1 <= d <= MAX_DIM and widths[0] == d
+            and siren_forward.takes(widths)
+            and backward_smem_bytes(widths) <= SMEM_LIMIT)
+
+
 def _check(params: Params, coords: torch.Tensor) -> None:
     check_inputs(params, coords, "siren_vgl")
+    widths = [coords.shape[1]] + [w.shape[1] for w, _ in params]
+    if coords.shape[1] <= MAX_DIM and not takes(widths, coords.shape[1]):
+        raise ValueError(f"siren_vgl: the backward's buffers for widths "
+                         f"{widths} exceed {SMEM_LIMIT} bytes of shared "
+                         f"memory ({backward_smem_bytes(widths)})")
     if coords.shape[1] > MAX_DIM:
         raise ValueError(f"siren_vgl: input dims up to {MAX_DIM} are "
                          f"supported, got {coords.shape[1]}")
@@ -238,3 +279,4 @@ def siren_vgl(params: Params, coords: torch.Tensor):
 
 siren_vgl.fwd_launches = 0
 siren_vgl.bwd_launches = 0
+siren_vgl.chain_routes = 0

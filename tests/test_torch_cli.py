@@ -329,7 +329,10 @@ def test_port_imports_no_jax():
         "          'models.elasticity', 'utils.io', 'recap',\n"
         "          'models.encodings', 'models.rbf_advection',\n"
         "          'parallel', 'parallel.mesh', 'run_experiments',\n"
-        "          'vortex_truth', 'vortex_sweep', 'bench', 'yardsticks'):\n"
+        "          'vortex_truth', 'vortex_sweep', 'bench', 'yardsticks',\n"
+        "          'overhead_probe', 'width_probe', 'coherence_probe',\n"
+        "          'plateau_probe', 'hashgrid_probe', 'vortex_train_probe',\n"
+        "          'tg_milestones'):\n"
         "    assert 'insr_pde_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
