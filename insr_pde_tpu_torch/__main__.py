@@ -19,6 +19,12 @@ vortex system's rows, divided over the ranks):
 `--n_devices` must be 0 (every rank) or the launch's world size; without a
 launcher 0 and 1 run one process. Only rank 0 writes outputs, checkpoints,
 `timings.jsonl` and `log/`.
+
+`--profile_dir DIR` runs the whole loop under `torch.profiler` and writes
+`DIR/trace.json` (host and device events) and `DIR/spans.json`, the
+program's spans (`utils/tracing.py`: each timestep, fit, Adam iteration and
+its sampler, with the host syncs counted in each) on the same clock as the
+trace's events, to overlay on the device timeline.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import time
 
 from .config import parse_args
 from .parallel.mesh import make_group
+from .utils import tracing
 
 
 def build_model(cfg, group=None):
@@ -88,6 +95,7 @@ def main(argv=None):
         if model.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
+        tracing.reset()
         profiler.__enter__()
 
     timings_path = os.path.join(cfg.exp_dir, "timings.jsonl")
@@ -112,6 +120,8 @@ def main(argv=None):
             os.makedirs(cfg.profile_dir, exist_ok=True)
             profiler.export_chrome_trace(
                 os.path.join(cfg.profile_dir, "trace.json"))
+            with open(os.path.join(cfg.profile_dir, "spans.json"), "w") as f:
+                json.dump(tracing.snapshot(), f)
     return model
 
 

@@ -132,7 +132,8 @@ class Config:
     output: str = "recap"
 
     # TPU-native additions (no reference analogue)
-    profile_dir: Optional[str] = None  # jax.profiler trace output dir
+    # torch.profiler output dir: trace.json and the program spans, spans.json
+    profile_dir: Optional[str] = None
     debug_nan: bool = False        # per-iteration NaN detection in the solver
     sample_resolution_init: int = 0  # 0 = reference defaults (500 2D / 100 3D)
     chunk_size: int = 250          # Adam iterations per jitted device round-trip

@@ -29,7 +29,7 @@ from ..config import Config
 from ..ops.precision import resolve_device, set_full_precision
 from ..parallel.mesh import Group
 from ..utils.ckpt import load_pytree, save_pytree
-from ..utils import viz
+from ..utils import tracing, viz
 from ..utils.logging import MetricsWriter
 from .networks import get_network
 from .solver import LossFn, SampleFn, Solver
@@ -70,6 +70,8 @@ class BaseModel:
         self._solvers: Dict[str, Solver] = {}
         # one record per fit: timestep, phase tag, iterations, wall seconds
         self.phase_timings: list = []
+        # the `timestep` span, open from begin_timestep to end_timestep
+        self._timestep_span = None
 
     # ---- construction ----
     def _create_field(self, name: str, in_dim: int, out_dim: int):
@@ -92,6 +94,10 @@ class BaseModel:
 
     # ---- timestep orchestration ----
     def begin_timestep(self):
+        # a step that raised left its span open: it ends here
+        self._end_timestep_span()
+        self._timestep_span = tracing.span("timestep")
+        self._timestep_span.__enter__()
         self.timestep += 1
         if self.tb is not None:
             self.tb.close()
@@ -103,6 +109,12 @@ class BaseModel:
 
     def end_timestep(self):
         self.save_ckpt()
+        self._end_timestep_span()
+
+    def _end_timestep_span(self):
+        if self._timestep_span is not None:
+            self._timestep_span.__exit__(None, None, None)
+            self._timestep_span = None
 
     # ---- training loop ----
     def _solver_options(self) -> Dict[str, Any]:
@@ -149,7 +161,8 @@ class BaseModel:
                     vis_fn(p)
 
         tic = time.perf_counter()
-        result = solver.fit(params, aux, callback=callback)
+        with tracing.span("fit"):
+            result = solver.fit(params, aux, callback=callback)
         # fit ends in a host fetch of the last chunk's scalars, so the device
         # work of this phase is done here
         self.phase_timings.append({"timestep": self.timestep, "tag": tag,

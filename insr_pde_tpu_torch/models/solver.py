@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import Group, broadcast, pmean
+from ..utils import tracing
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor], Any], Dict[str, torch.Tensor]]
 # loss_fn(params, points, aux) -> {"main": scalar, ...}; total loss = sum of
@@ -231,31 +232,35 @@ class Solver:
         return ld, grad
 
     def _step(self, state: SolveState, shapes, aux):
-        """One Adam + scheduler iteration; no host synchronisation (but the
-        all_reduce of a sharded solve)."""
-        ld, grad = self.value_and_grad(state.params, shapes, self.sample_fn(),
-                                       aux)
+        """One Adam + scheduler iteration, the `iter` span (its points the
+        `sample` span). It adds no host synchronisation (but the all_reduce
+        of a sharded solve); `sample_fn` may make some."""
+        with tracing.span("iter"):
+            with tracing.span("sample"):
+                points = self.sample_fn()
+            ld, grad = self.value_and_grad(state.params, shapes, points, aux)
 
-        updates, opt = adam_update(grad, state.opt, self.lr)
-        new_params = state.params + updates * state.plateau.scale
+            updates, opt = adam_update(grad, state.opt, self.lr)
+            new_params = state.params + updates * state.plateau.scale
 
-        # a non-finite loss/grad iteration is not written: skip the update
-        # and keep optimizing
-        finite = torch.isfinite(ld["main"]) & torch.isfinite(grad).all()
-        # freeze everything once early-stopped (in-device 'break')
-        active = ~state.plateau.stopped
-        write = active & finite
-        params = torch.where(write, new_params, state.params)
-        opt = _where(write, opt, state.opt)
-        plateau = plateau_update(state.plateau, ld["main"], **self._plateau_kw)
-        plateau = _where(write, plateau, state.plateau)
+            # a non-finite loss/grad iteration is not written: skip the
+            # update and keep optimizing
+            finite = torch.isfinite(ld["main"]) & torch.isfinite(grad).all()
+            # freeze everything once early-stopped (in-device 'break')
+            active = ~state.plateau.stopped
+            write = active & finite
+            params = torch.where(write, new_params, state.params)
+            opt = _where(write, opt, state.opt)
+            plateau = plateau_update(state.plateau, ld["main"],
+                                     **self._plateau_kw)
+            plateau = _where(write, plateau, state.plateau)
 
-        out = dict(ld)
-        out["_lr"] = self.lr * state.plateau.scale
-        out["_active"] = active
-        if self.debug_nan:
-            out["_nan"] = torch.isnan(grad).any()
-        return SolveState(params, opt, plateau), out
+            out = dict(ld)
+            out["_lr"] = self.lr * state.plateau.scale
+            out["_active"] = active
+            if self.debug_nan:
+                out["_nan"] = torch.isnan(grad).any()
+            return SolveState(params, opt, plateau), out
 
     def _run_chunk(self, state, shapes, aux, n):
         outs = []
