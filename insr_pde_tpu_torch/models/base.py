@@ -2,10 +2,12 @@
 (counterpart of `insr_pde_tpu/models/base.py`).
 
 Fields are parameter lists in `self.fields`; "copy weights to the prev net"
-is a list assignment. Each training phase is a cached `Solver`. Every model
-owns one `torch.Generator`, seeded from `cfg.seed`, on its device (on the
-CPU with `--host_rng`, the draws then copied to the device): network init
-and every collocation draw come from it.
+is a list assignment. Each training phase is a cached `Solver`; on the card
+their CUDA graphs share the model's `graph_pool`. Every model owns one
+`torch.Generator`, seeded from `cfg.seed`, on its device (on the CPU with
+`--host_rng`, the draws then copied to the device, so the Solvers issue
+their iterations op by op): network init and every collocation draw come
+from it, and the Solvers register it with their graphs.
 
 Sharded (`group`, `parallel/mesh.py`): every rank draws the network init
 from that generator, so the fields start replicated; rank r > 0 then draws
@@ -32,7 +34,7 @@ from ..utils.ckpt import load_pytree, save_pytree
 from ..utils import tracing, viz
 from ..utils.logging import MetricsWriter
 from .networks import get_network
-from .solver import LossFn, SampleFn, Solver
+from .solver import GraphPool, LossFn, SampleFn, Solver
 
 
 class BaseModel:
@@ -68,6 +70,8 @@ class BaseModel:
         self.fields: Dict[str, Any] = {}   # name -> parameter list
         self.networks: Dict[str, Any] = {}  # name -> MLP
         self._solvers: Dict[str, Solver] = {}
+        # the CUDA graph memory pool of every phase's Solver
+        self.graph_pool = GraphPool()
         # one record per fit: timestep, phase tag, iterations, wall seconds
         self.phase_timings: list = []
         # the `timestep` span, open from begin_timestep to end_timestep
@@ -126,7 +130,8 @@ class BaseModel:
                     plateau_threshold=self.cfg.plateau_threshold,
                     plateau_factor=self.cfg.plateau_factor,
                     early_stop_min_lr=self.min_lr,
-                    debug_nan=self.cfg.debug_nan, group=self.group)
+                    debug_nan=self.cfg.debug_nan, group=self.group,
+                    generator=self.generator, graph_pool=self.graph_pool)
 
     def _run_phase(self, tag: str, loss_fn: LossFn, sample_fn: SampleFn,
                    params, aux=None, vis_fn: Optional[Callable] = None,

@@ -7,6 +7,8 @@ same seed, so parity tests hand both packages the same points instead.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -74,9 +76,7 @@ def sample_boundary(generator: torch.Generator, n: int, sdim: int,
     if batch:
         raise NotImplementedError("sample_boundary: batch is 1D only")
     if sdim == 2:
-        ranges = torch.tensor(_strip_ranges("vertical", epsilon)
-                              + _strip_ranges("horizontal", epsilon),
-                              dtype=torch.float32, device=dev)
+        ranges = _ranges(dev, ("vertical", "horizontal"), epsilon)
         m = n // 4
         u = torch.rand((4, m, 2), generator=generator, device=dev,
                        dtype=torch.float32)
@@ -98,12 +98,21 @@ def _strip_ranges(side: str, epsilon: float):
     raise RuntimeError(f"sample_boundary2D_separate: side={side}")
 
 
+@functools.lru_cache(maxsize=None)
+def _ranges(device, sides, epsilon: float) -> torch.Tensor:
+    """The strip ranges of `sides` as one f32 tensor on `device`, uploaded
+    once: a sampler call then copies nothing from the host, so a CUDA graph
+    can capture it."""
+    return torch.tensor(
+        [r for side in sides for r in _strip_ranges(side, epsilon)],
+        dtype=torch.float32, device=device)
+
+
 def sample_boundary2D_separate(generator: torch.Generator, n: int, side: str,
                                epsilon: float = 1e-4) -> torch.Tensor:
     """2D boundary strips selected by side, n//2 points per strip, shape
     (2 * (n//2), 2): the first half on the strip at -1, the second at +1."""
-    ranges = torch.tensor(_strip_ranges(side, epsilon), dtype=torch.float32,
-                          device=generator.device)
+    ranges = _ranges(generator.device, (side,), epsilon)
     m = n // 2
     u = torch.rand((2, m, 2), generator=generator, device=generator.device,
                    dtype=torch.float32)

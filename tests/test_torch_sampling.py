@@ -84,3 +84,54 @@ def test_boundary_strips_match_jax_geometry(side):
 def test_boundary_rejects_unknown_side():
     with pytest.raises(RuntimeError):
         tsampling.sample_boundary2D_separate(_gen(0), 10, "diagonal")
+
+
+def _strips_before(generator, n, sides, per_strip, epsilon):
+    """The 2D strip samplers as they were: the ranges uploaded anew on
+    every call."""
+    ranges = torch.tensor([r for side in sides
+                           for r in tsampling._strip_ranges(side, epsilon)],
+                          dtype=torch.float32, device=generator.device)
+    m = n // per_strip
+    u = torch.rand((len(ranges), m, 2), generator=generator,
+                   device=generator.device, dtype=torch.float32)
+    lo, hi = ranges[..., 0], ranges[..., 1]
+    return (lo[:, None, :] + u * (hi - lo)[:, None, :]).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("epsilon", [1e-4, 3e-2])
+@pytest.mark.parametrize("sampler", ["horizontal", "vertical", "boundary"])
+def test_2d_strips_same_bits_and_no_upload_per_call(sampler, epsilon,
+                                                    monkeypatch):
+    """The 2D samplers give the bits they gave when they uploaded their
+    strip ranges on every call, and after the first call upload nothing
+    (`torch.tensor` is not called): a CUDA graph can capture them."""
+    n = 1001
+
+    def draw(g):
+        if sampler == "boundary":
+            return tsampling.sample_boundary(g, n, 2, epsilon)
+        return tsampling.sample_boundary2D_separate(g, n, sampler, epsilon)
+
+    sides = (("vertical", "horizontal") if sampler == "boundary"
+             else (sampler,))
+    per_strip = 4 if sampler == "boundary" else 2
+    got, want = _gen(9), _gen(9)
+    first = draw(got)
+    np.testing.assert_array_equal(
+        first.numpy(),
+        _strips_before(want, n, sides, per_strip, epsilon).numpy())
+    uploads = []
+    real = torch.tensor
+
+    def counting(*args, **kwargs):
+        uploads.append(args)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(torch, "tensor", counting)
+    for _ in range(3):
+        again = draw(got)
+        np.testing.assert_array_equal(
+            again.numpy(),
+            _strips_before(want, n, sides, per_strip, epsilon).numpy())
+    # the reference above uploads once a call; the sampler never
+    assert len(uploads) == 3
