@@ -51,7 +51,7 @@ from ..ops.linalg import BlockSparse, cg_batch, cgls_sparse_chunked
 from ..ops.precision import resolve_device
 from ..parallel.mesh import Group, pmax, psum
 from ..ops.sampling import sample_uniform
-from ..utils import viz
+from ..utils import tracing, viz
 from ..utils.ckpt import load_pytree, save_pytree
 from ..utils.logging import MetricsWriter
 from .rbf import (RBFConfig, RBFParams, basis_dt, basis_dx, basis_dxdt,
@@ -510,8 +510,15 @@ class VortexModel:
         cgls_maxiter iterations, unpreconditioned and undamped, as in the
         JAX package. `picard_timings` holds each iteration's assemble /
         whiten / solve seconds (each stage ends in a fetch of one element,
-        so the times include the device's work), its iteration count and
-        whether the system took the `host_sync` round trip. With a group,
+        so the times include the device's work), its iteration count, the
+        CGLS phi read at each chunk's end (`phi_history`) and whether the
+        system took the `host_sync` round trip. Each iteration is a
+        `picard` span, its assembly an `assemble` span (`utils/tracing.py`;
+        `whiten`, `cgls` and `cgls_chunk` are `ops/linalg.py`'s). On the
+        card without a group, the CGLS iterations run as CUDA graph replays
+        (`ops/linalg.GRAPH_ITERS`). The whitener cache, the
+        warm start and the Picard count live on the model, so N calls at
+        `picard_iters` = 1 give what one call at N gives. With a group,
         solver="cgls" assembles and solves the row-sharded system (each
         rank its rows, the same preconditioner and chunks as one process)
         and the residual is taken over all the ranks' rows; solver="cg"
@@ -539,67 +546,73 @@ class VortexModel:
         self.picard_timings = []
         W_cache = self._whitener
         for it in range(cfg.picard_iters):
-            # only a W from a system assembled around a solved field (not
-            # the random init) is kept as representative
-            representative = self._picard_seen >= 1
-            t0 = time.perf_counter()
-            ubar = u_flat.reshape(self.params.u.shape)
-            A, b = self.assemble(ubar, group=group)
-            _sync(A.vals)
-            t_assemble = time.perf_counter() - t0
-            operand_mb = (A.vals.numel() * 4 + A.cols.numel() * 4
-                          + b.numel() * 4) / 1e6
-            if cfg.host_sync:
-                A = BlockSparse(*(torch.from_numpy(t.cpu().numpy()).to(
-                    self.device) for t in (A.vals, A.cols)), A.n_blocks,
-                                row_slots=A.row_slots, t_index=A.t_index)
-                b = torch.from_numpy(b.cpu().numpy()).to(self.device)
-            t0 = time.perf_counter()
-            if solver == "cg":
-                def normal(X):
-                    return A.rmv(A.mv(X[0, :, 0]))[None, :, None]
+            with tracing.span("picard"):
+                # only a W from a system assembled around a solved field
+                # (not the random init) is kept as representative
+                representative = self._picard_seen >= 1
+                t0 = time.perf_counter()
+                ubar = u_flat.reshape(self.params.u.shape)
+                with tracing.span("assemble"):
+                    A, b = self.assemble(ubar, group=group)
+                    _sync(A.vals)
+                t_assemble = time.perf_counter() - t0
+                operand_mb = (A.vals.numel() * 4 + A.cols.numel() * 4
+                              + b.numel() * 4) / 1e6
+                if cfg.host_sync:
+                    A = BlockSparse(*(torch.from_numpy(t.cpu().numpy()).to(
+                        self.device) for t in (A.vals, A.cols)), A.n_blocks,
+                                    row_slots=A.row_slots, t_index=A.t_index)
+                    b = torch.from_numpy(b.cpu().numpy()).to(self.device)
+                t0 = time.perf_counter()
+                if solver == "cg":
+                    def normal(X):
+                        return A.rmv(A.mv(X[0, :, 0]))[None, :, None]
 
-                X, info = cg_batch(normal, A.rmv(b)[None, :, None],
-                                   rtol=1e-6, maxiter=cfg.cgls_maxiter,
-                                   check_every=cfg.cgls_chunk or 200)
-                x, info = X[0, :, 0], {**info, "t_whiten": 0.0, "W": None}
-            else:
-                # cgls_chunk = 0 is one long loop, whose iterates a chunked
-                # run without restarts repeats; the host reads the state
-                # every 200
-                x, info = cgls_sparse_chunked(
-                    A, b, u_flat * cfg.warm_start, maxiter=cfg.cgls_maxiter,
-                    tol=cfg.cgls_tol, chunk=cfg.cgls_chunk or 200,
-                    precondition=precond, damp=cfg.cgls_damp,
-                    restart=cfg.cgls_restart and cfg.cgls_chunk > 0,
-                    whitener=W_cache if cfg.reuse_whitener else None,
-                    group=group)
-            if (cfg.reuse_whitener and W_cache is None and representative
-                    and info["W"] is not None):
-                W_cache = self._whitener = info["W"]
-            t_whiten = info["t_whiten"]
-            u_flat = x
-            if group is None:
-                res = torch.linalg.norm(A.mv(x) - b)
-            else:   # |A x - b| over every rank's rows
-                res = torch.sqrt(psum(torch.sum((A.mv(x) - b) ** 2), group))
-            _sync(u_flat)
-            self._picard_seen += 1
-            if group is self.group:
-                self._t_index = A.t_index
-            t_solve = time.perf_counter() - t0 - t_whiten
-            self.picard_timings.append(
-                {"picard": it, "assemble_s": round(t_assemble, 3),
-                 "whiten_s": round(t_whiten, 3),
-                 "solve_s": round(t_solve, 3),
-                 "operand_mb": round(operand_mb, 1),
-                 "cgls_iters": int(info["niter"]),
-                 "host_shipped": bool(cfg.host_sync)})
-            if self.tb is not None:
-                self.tb.add_scalars(
-                    "vortex_matrix",
-                    {"residual": float(res), "cgls_iters": int(info["niter"])},
-                    it)
+                    X, info = cg_batch(normal, A.rmv(b)[None, :, None],
+                                       rtol=1e-6, maxiter=cfg.cgls_maxiter,
+                                       check_every=cfg.cgls_chunk or 200)
+                    x = X[0, :, 0]
+                    info = {**info, "t_whiten": 0.0, "W": None}
+                else:
+                    # cgls_chunk = 0 is one long loop, whose iterates a
+                    # chunked run without restarts repeats; the host reads
+                    # the state every 200
+                    x, info = cgls_sparse_chunked(
+                        A, b, u_flat * cfg.warm_start,
+                        maxiter=cfg.cgls_maxiter,
+                        tol=cfg.cgls_tol, chunk=cfg.cgls_chunk or 200,
+                        precondition=precond, damp=cfg.cgls_damp,
+                        restart=cfg.cgls_restart and cfg.cgls_chunk > 0,
+                        whitener=W_cache if cfg.reuse_whitener else None,
+                        group=group)
+                if (cfg.reuse_whitener and W_cache is None and representative
+                        and info["W"] is not None):
+                    W_cache = self._whitener = info["W"]
+                t_whiten = info["t_whiten"]
+                u_flat = x
+                if group is None:
+                    res = torch.linalg.norm(A.mv(x) - b)
+                else:   # |A x - b| over every rank's rows
+                    res = torch.sqrt(psum(torch.sum((A.mv(x) - b) ** 2),
+                                          group))
+                _sync(u_flat)
+                self._picard_seen += 1
+                if group is self.group:
+                    self._t_index = A.t_index
+                t_solve = time.perf_counter() - t0 - t_whiten
+                self.picard_timings.append(
+                    {"picard": it, "assemble_s": round(t_assemble, 3),
+                     "whiten_s": round(t_whiten, 3),
+                     "solve_s": round(t_solve, 3),
+                     "operand_mb": round(operand_mb, 1),
+                     "cgls_iters": int(info["niter"]),
+                     "phi_history": list(info.get("phi_history", ())),
+                     "host_shipped": bool(cfg.host_sync)})
+                if self.tb is not None:
+                    self.tb.add_scalars(
+                        "vortex_matrix",
+                        {"residual": float(res),
+                         "cgls_iters": int(info["niter"])}, it)
         self.params = self.params._replace(
             u=u_flat.reshape(self.params.u.shape))
         return float(res)

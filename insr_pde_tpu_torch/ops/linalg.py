@@ -33,6 +33,13 @@ the device as a flag that freezes the state (the iterates, residuals,
 directions, scalars and count keep their values once it is false), and the
 host reads the state once per chunk. The iterates and iteration counts are
 those of the while loop; the host never waits on the card inside a chunk.
+On the card without a group, `cgls_sparse_chunked` issues a chunk's CGLS
+iterations as replays of one CUDA graph of `GRAPH_ITERS` iterations,
+captured once per solve over static copies of the state (the operator,
+preconditioner and right-hand side stay the solve's own tensors); the
+replays run the kernels the op-by-op iterations run, in the same order,
+and give the same bits. With a group each iteration is issued op by op
+(gloo's reductions go through the host).
 
 The JAX package's other operator layouts exist for the TPU: `BlockSparseP`
 packs (R, S, J) values as (R, S*J) for its T(8,128) tile padding, which a
@@ -53,8 +60,22 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import Group, broadcast, psum
+from ..utils import tracing
+from . import block_ell
 from .block_ell import (TransposeIndex, block_ell_mv, block_ell_rmv,
                         transpose_index, transpose_vals)
+
+# CGLS iterations in one CUDA graph (`cgls_sparse_chunked` on the card); 0
+# issues every iteration op by op
+GRAPH_ITERS = 25
+# the launch counters a graph's capture advances and each replay advances
+_COUNTERS = ((block_ell, "mv_launches"), (block_ell, "rmv_launches"))
+# per device, the stream CGLS graphs are captured on and the last graph
+# captured there: a capture on that stream shares the last graph's memory
+# pool, so each solve's graph reuses the blocks of the one before (a pool
+# of its own, or another stream, would leave them reserved once the graph
+# is gone), and cuBLAS keeps one workspace for the stream
+_capture: dict = {}
 
 
 class BlockSparse:
@@ -363,6 +384,50 @@ def _iterate(mv, rmv, st: CGLSState, stop2, d2, n: int,
     return CGLSState(y, r, p, gamma, k, phi, by, bphi)
 
 
+class _GraphedIterations:
+    """`_iterate`'s n iterations captured once as a CUDA graph over static
+    copies of a state (on the device's capture stream, into the memory
+    pool of its last CGLS graph, which is never replayed again); a call
+    copies a state in, replays the graph on the current stream and returns
+    the graph's output state, which the next call overwrites. Capture runs
+    nothing on the device, so the launch counters the capture advanced are
+    taken back and advanced at each replay. A synchronising iteration
+    raises at capture."""
+
+    def __init__(self, mv, rmv, st: CGLSState, stop2, d2, n: int,
+                 maxiter: int, rows_reduce):
+        device = st.y.device
+        self.static = CGLSState(*(t.clone() for t in st))
+        self.graph = torch.cuda.CUDAGraph()
+        before = [getattr(owner, name) for owner, name in _COUNTERS]
+        stream, last = _capture.get(device, (None, None))
+        if stream is None:
+            stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(
+                pool=None if last is None else last.pool())
+            try:
+                self.out = _iterate(mv, rmv, self.static, stop2, d2, n,
+                                    maxiter, rows_reduce)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        _capture[device] = (stream, self.graph)
+        self.counts = [getattr(owner, name) - b
+                       for (owner, name), b in zip(_COUNTERS, before)]
+        for (owner, name), b in zip(_COUNTERS, before):
+            setattr(owner, name, b)
+
+    def __call__(self, st: CGLSState) -> CGLSState:
+        for dst, src in zip(self.static, st):
+            dst.copy_(src)
+        self.graph.replay()
+        for (owner, name), count in zip(_COUNTERS, self.counts):
+            setattr(owner, name, getattr(owner, name) + count)
+        return self.out
+
+
 def _fetch(st: CGLSState):
     """(k, gamma, phi, best_phi) on the host: one transfer."""
     k, gamma, phi, bphi = torch.stack(
@@ -381,7 +446,7 @@ def _final(st: CGLSState) -> torch.Tensor:
 def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
          maxiter: int = 500, tol: float = 1e-8, damp: float = 0.0,
          check_every: int = 200, restart: bool = False,
-         rows_reduce: Optional[Callable] = None):
+         rows_reduce: Optional[Callable] = None, graph_iters: int = 0):
     """min_x |A x - b|^2 + damp^2 |x|^2 by CGLS (CG on the regularized
     normal equations in factored form).
 
@@ -396,7 +461,12 @@ def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
     blows up plain CGLS on the stream systems. rows_reduce: the reduction
     of a row-space inner product over the row shards (`psum` when the rows
     are sharded over ranks; At_mv then reduces too). Returns (x, info with
-    'niter', 'resnorm' |A^T(Ax-b) - damp^2 x|, 'best_phi')."""
+    'niter', 'resnorm' |A^T(Ax-b) - damp^2 x|, 'best_phi', 'phi_history':
+    the phi the host read at each chunk's end). Each chunk with its read is
+    a `cgls_chunk` span (`utils/tracing.py`). graph_iters > 0 (CUDA tensors,
+    A_mv, At_mv and rows_reduce free of host syncs): the iterations run as
+    replays of one CUDA graph of that many, captured at the first chunk,
+    the rest of a chunk (its count modulo graph_iters) op by op."""
     if rows_reduce is None:
         def rows_reduce(v):
             return v
@@ -405,12 +475,24 @@ def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
     stop2 = torch.tensor((tol ** 2) * float(st.gamma), dtype=b.dtype,
                          device=b.device)
     stop2_host = float(stop2)
+    phi_history = []
+    graphed = None
     it = 0
     while True:
-        st = _iterate(A_mv, At_mv, st, stop2, d2,
-                      max(min(check_every, maxiter - it), 0), maxiter,
-                      rows_reduce)
-        new_it, gamma, phi, bphi = _fetch(st)
+        n = max(min(check_every, maxiter - it), 0)
+        with tracing.span("cgls_chunk"):
+            if graph_iters > 0:
+                if graphed is None and n >= graph_iters:
+                    graphed = _GraphedIterations(A_mv, At_mv, st, stop2, d2,
+                                                 graph_iters, maxiter,
+                                                 rows_reduce)
+                for _ in range(n // graph_iters):
+                    st = graphed(st)
+                n %= graph_iters
+            st = _iterate(A_mv, At_mv, st, stop2, d2, n, maxiter,
+                          rows_reduce)
+            new_it, gamma, phi, bphi = _fetch(st)
+        phi_history.append(phi)
         if (new_it >= maxiter or gamma <= stop2_host or new_it == it
                 or phi >= 1e4 * bphi):
             break
@@ -423,8 +505,10 @@ def cgls(A_mv: Callable, At_mv: Callable, b: torch.Tensor, x0: torch.Tensor,
             st = CGLSState(y, fresh.r, fresh.p, fresh.gamma, st.k, fresh.phi,
                            torch.where(better, y, st.best_y),
                            torch.where(better, fresh.phi, st.best_phi))
+    if graphed is not None:     # off the graph's outputs
+        st = CGLSState(*(t.clone() for t in st))
     return _final(st), {"niter": int(st.k), "resnorm": torch.sqrt(st.gamma),
-                        "best_phi": st.best_phi}
+                        "best_phi": st.best_phi, "phi_history": phi_history}
 
 
 def _jacobi(A: BlockSparse, group: Optional[Group] = None) -> torch.Tensor:
@@ -455,17 +539,20 @@ def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
     damp^2 |y|^2, x = D y, D = 1 / column norm) or "block" (the
     per-site-block eigen-whitener; the scaled variable is y with x = W y).
     whitener (block mode): a W from an earlier solve of the same pattern,
-    reused instead of recomputed; the W used is returned as info["W"]."""
+    reused instead of recomputed; the W used is returned as info["W"].
+    Spans (`utils/tracing.py`): `whiten` around the whitener and the warm
+    start's change of variable, `cgls` around the solve."""
     t_whiten = 0.0
     W = None
     if precondition == "block":
         tic = time.perf_counter()
-        W = (whitener if whitener is not None
-             else block_whitener_host(A, group=group))
-        # y0 solves W y0 = x0 per block, so a warm start survives the change
-        # of variable (x0 = 0 gives y0 = 0)
-        y0 = _prewhiten_x0(W.cpu().numpy().astype(np.float64), x0,
-                           A.n_blocks)
+        with tracing.span("whiten"):
+            W = (whitener if whitener is not None
+                 else block_whitener_host(A, group=group))
+            # y0 solves W y0 = x0 per block, so a warm start survives the
+            # change of variable (x0 = 0 gives y0 = 0)
+            y0 = _prewhiten_x0(W.cpu().numpy().astype(np.float64), x0,
+                               A.n_blocks)
         t_whiten = time.perf_counter() - tic
 
         def apply_p(v):
@@ -481,11 +568,14 @@ def cgls_sparse_chunked(A: BlockSparse, b: torch.Tensor, x0: torch.Tensor,
         def apply_p(v):
             return P * v
 
-    y, info = cgls(lambda v: A.mv(apply_p(v)),
-                   lambda r: apply_p(psum(A.rmv(r), group)),
-                   b, y0, maxiter=maxiter, tol=tol, damp=damp,
-                   check_every=chunk, restart=restart,
-                   rows_reduce=lambda v: psum(v, group))
+    with tracing.span("cgls"):
+        y, info = cgls(lambda v: A.mv(apply_p(v)),
+                       lambda r: apply_p(psum(A.rmv(r), group)),
+                       b, y0, maxiter=maxiter, tol=tol, damp=damp,
+                       check_every=chunk, restart=restart,
+                       rows_reduce=lambda v: psum(v, group),
+                       graph_iters=(GRAPH_ITERS if b.is_cuda and group is None
+                                    else 0))
     return apply_p(y), {**info, "t_whiten": t_whiten, "W": W}
 
 

@@ -10,7 +10,10 @@ The same flags, defaults, presets and stream/velocity defaults as
 coefficients and writes the sampled field. Runs on the card (`--device
 cuda`, the default) unless asked for the CPU; without a card, cuda raises.
 `--host_sync` takes each assembled system through host memory once before
-its solve, as the JAX package does.
+its solve, as the JAX package does. `--seed` is a port addition (the JAX
+`starterL.py` keeps `VortexConfig`'s seed, which is the default here too).
+`build_model` builds the model of parsed flags as `main` does, for a
+caller that runs its Picard iterations itself.
 
 Row-sharded over ranks (`--n_devices`, a port addition: the JAX
 `starterL.py` runs its model on one device): `torchrun --standalone
@@ -69,6 +72,9 @@ def parse_args(argv=None):
     ap.add_argument("--n_spatial_basis", type=int, default=400)
     ap.add_argument("--picard_iters", type=int, default=3)
     ap.add_argument("--cgls_maxiter", type=int, default=2000)
+    ap.add_argument("--seed", type=int, default=VortexConfig.seed,
+                    help="seed of the CPU generator that draws the random "
+                         "basis and the points")
     ap.add_argument("--cgls_chunk", type=int, default=0,
                     help=">0: CGLS in chunks of this many iterations, the "
                          "host reading the state between chunks")
@@ -142,6 +148,7 @@ def build_config(args) -> VortexConfig:
         collocation_pts_num=args.collocation, boundary_num=args.boundary,
         time_num=args.time_num, n_spatial_basis=args.n_spatial_basis,
         picard_iters=args.picard_iters, cgls_maxiter=args.cgls_maxiter,
+        seed=args.seed,
         cgls_chunk=args.cgls_chunk, cgls_restart=args.cgls_restart,
         pou=pou, cgls_damp=damp, band_width=bw, w_bc=w_bc,
         pou_time=args.pou_time, time_window=args.time_window,
@@ -154,20 +161,28 @@ def build_config(args) -> VortexConfig:
         host_sync=args.host_sync)
 
 
-def main(argv=None):
-    """Run the driver; returns the solved model."""
-    args = parse_args(argv)
+def build_model(args):
+    """The model of parsed flags, as the entry point builds it: the config,
+    the rank group, full precision, then the formulation's model (its basis
+    and points drawn from `--seed`), loaded from `--resume` where given."""
     cfg = build_config(args)
     group = make_group(args.n_devices, args.dist_backend, args.device)
-    main_rank = group is None or group.is_main
     device = resolve_device(args.device)
     set_full_precision()
     cls = StreamVortexModel if args.formulation == "stream" else VortexModel
     model = cls(cfg, device=device, group=group)
     if args.resume:
         model.load_ckpt(args.resume)
-        if main_rank:
+        if model.is_main:
             print(f"resumed coefficients from {args.resume}")
+    return model
+
+
+def main(argv=None):
+    """Run the driver; returns the solved model."""
+    args = parse_args(argv)
+    model = build_model(args)
+    main_rank = model.is_main
     ckpt_path = args.ckpt_path or f"{args.output_path}/vortex_ckpt.npz"
 
     for r in range(args.n_rounds):
